@@ -6,7 +6,10 @@ the compiled program. The time delta vs baseline localises the cost of each
 system in the *fused* program (component micro-benchmarks mislead: XLA fuses
 and CSEs across systems). Usage:
 
-    python bench/micro_ablate.py [R] [--variants a,b,...]
+    python bench/micro_ablate.py [R] [--variants a,b,...] [--pallas]
+
+`--pallas` runs the GBP passes' arithmetic in the fused GPU kernels
+(GbpParams.use_pallas).
 """
 
 from __future__ import annotations
@@ -17,11 +20,8 @@ import time
 from functools import partial
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 import jax
-import jax.numpy as jnp
-import numpy as np
 
 from profile_tick import build
 
@@ -30,11 +30,6 @@ def _identity(state, *a, **k):
     return state
 
 
-# NOTE: under use_pallas=True the internal passes and the external VARIABLE
-# pass are inlined in kernels/hot.py (variable_slot + inline delivery) — only
-# external_factor_pass still routes through the tick-module globals, so the
-# no_ext_var variant is forced onto the use_pallas=False build below (its
-# delta is relative to a use_pallas=False baseline, printed separately).
 ABLATIONS = {
     "baseline": [],
     "no_ext_factor": ["external_factor_pass"],
@@ -48,8 +43,10 @@ ABLATIONS = {
 
 
 def main():
+    from magics_tpu.compile_cache import enable_compile_cache
     from magics_tpu.graph import tick as T
-    from magics_tpu.kernels import hot as H
+
+    enable_compile_cache()
 
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     R = int(args[0]) if args else 1024
@@ -58,39 +55,29 @@ def main():
         if a.startswith("--variants="):
             sel = a.split("=", 1)[1].split(",")
 
-    params, state0, sdf = build(R, use_pallas=True)
-    params_nopallas, _, _ = build(R, use_pallas=False)
-    nopallas_variants = {"no_ext_var", "baseline_nopallas"}
-    all_ablations = {"baseline": [], "baseline_nopallas": []}
-    all_ablations.update(ABLATIONS)
+    p, state0, sdf = build(R, use_pallas="--pallas" in sys.argv)
     saved = {}
     results = {}
-    for name, victims in all_ablations.items():
+    for name, victims in ABLATIONS.items():
         if sel and name not in sel:
             continue
-        p = params_nopallas if name in nopallas_variants else params
         for v in victims:
             saved[v] = getattr(T, v)
             setattr(T, v, _identity)
         try:
             run = jax.jit(partial(T.run_ticks, n=20), static_argnums=2)
-            state = run(state0, sdf, p)
-            _ = int(np.asarray(state.tick))
-            state = run(state, sdf, p)
-            _ = int(np.asarray(state.tick))
+            state = jax.block_until_ready(run(state0, sdf, p))
+            state = jax.block_until_ready(run(state, sdf, p))
             t0 = time.perf_counter()
             for _ in range(3):
-                state = run(state, sdf, p)
-                _ = int(np.asarray(state.tick))
+                state = jax.block_until_ready(run(state, sdf, p))
             dt = time.perf_counter() - t0
             ms = dt / 60 * 1e3
             results[name] = ms
-            base = results.get(
-                "baseline_nopallas" if name in nopallas_variants else "baseline"
-            )
+            base = results.get("baseline")
             delta = (
                 f"  (saves {base - ms:+.2f} ms)"
-                if base and not name.startswith("baseline")
+                if base and name != "baseline"
                 else ""
             )
             print(f"{name:22s} {ms:8.2f} ms/tick{delta}", flush=True)

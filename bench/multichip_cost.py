@@ -1,10 +1,9 @@
 """Measured multi-chip exchange cost on the virtual CPU mesh.
 
-The only multi-chip validation this environment allows beyond the dryrun
-(one real chip): run the robot-sharded tick on an N-virtual-device CPU mesh
-and MEASURE (a) the collective traffic per tick from the compiled HLO
-(sum of all-gather / all-reduce / collective-permute / all-to-all output
-bytes — what actually rides ICI/DCN on real hardware), and (b) the
+Runs the robot-sharded tick on an N-virtual-device CPU mesh and MEASURES
+(a) the collective traffic per tick from the compiled HLO (sum of
+all-gather / all-reduce / collective-permute / all-to-all output bytes —
+what actually moves between devices on real hardware), and (b) the
 shard_map vs GSPMD step-time ratio. Results feed ARCHITECTURE §9's traffic
 table, replacing the modelled numbers.
 

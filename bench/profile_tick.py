@@ -1,7 +1,7 @@
 """Component-level timing of the headline bench workload.
 
 Times the full tick and ablations (internal-only / external-only schedules,
-Pallas slot kernel, grid connectivity) on the same R=1024 Circle-Experiment
+the fused GPU slot kernels, grid connectivity) on the same R=1024 Circle-Experiment
 configuration as bench.py, so regressions can be localised. Usage:
 
     python bench/profile_tick.py [R] [--variants a,b,...]
@@ -52,15 +52,12 @@ def time_variant(name, params, state, sdf, n_ticks=20, reps=3):
 
     run = jax.jit(partial(T.run_ticks, n=n_ticks), static_argnums=2)
     t_c0 = time.perf_counter()
-    state = run(state, sdf, params)
-    _ = int(np.asarray(state.tick))
+    state = jax.block_until_ready(run(state, sdf, params))
     compile_s = time.perf_counter() - t_c0
-    state = run(state, sdf, params)
-    _ = int(np.asarray(state.tick))
+    state = jax.block_until_ready(run(state, sdf, params))
     t0 = time.perf_counter()
     for _ in range(reps):
-        state = run(state, sdf, params)
-        _ = int(np.asarray(state.tick))
+        state = jax.block_until_ready(run(state, sdf, params))
     dt = time.perf_counter() - t0
     ms = dt / (reps * n_ticks) * 1e3
     print(f"{name:28s} {ms:9.2f} ms/tick  {1e3 / ms:8.2f} ticks/s  (compile {compile_s:.1f}s)")
@@ -80,6 +77,9 @@ VARIANTS = {
 
 
 def main():
+    from magics_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     args = [a for a in sys.argv[1:] if not a.startswith("--")]
     R = int(args[0]) if args else 1024
     sel = None

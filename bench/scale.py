@@ -1,17 +1,17 @@
-"""Swarm-scale benchmark: robots planned in real time on one chip.
+"""Swarm-scale benchmark: robots planned in real time on one device.
 
 BASELINE.md's north star is >= 10,000 robots inside the simulator's per-tick
 deadline. This sweeps R on the Circle workload with the reference's DEFAULT
 iteration budget (10 internal + 10 external, centered — gbp_config
 lib.rs:417-426) at 10 Hz, using grid connectivity (graph/grid.py) so
-neighbour search stays O(R). Prints one line per R: ms/tick and the
-real-time multiple (10 Hz => 100 ms budget).
+neighbour search stays O(R) (bench.scale_swarm). Prints one line per R:
+ms/tick and the real-time multiple (10 Hz => 100 ms budget).
 
     python bench/scale.py [R1,R2,...] [sender|receiver|receiver_compact]
 
 The second argument selects the inter-robot exchange strategy
 (GbpParams.ext_exchange); default receiver_compact — the receiver-computes
-fast path (no per-slot outbox gather, ARCHITECTURE §8 lever (a)).
+fast path (no per-slot outbox gather).
 """
 
 from __future__ import annotations
@@ -29,58 +29,28 @@ import numpy as np
 
 
 def main():
+    from bench import scale_swarm
+    from magics_tpu.compile_cache import enable_compile_cache
+    from magics_tpu.graph import tick as T
+
+    enable_compile_cache()
     rs = [1024, 4096, 8192, 16384]
     if len(sys.argv) > 1:
         rs = [int(x) for x in sys.argv[1].split(",")]
     ext = sys.argv[2] if len(sys.argv) > 2 else "receiver_compact"
 
-    from magics_tpu.core.schedule import ScheduleKind
-    from magics_tpu.graph import tick as T
-    from magics_tpu.sim.builder import build_scenario, circle_formation
-
-    speed = 15.0
     for R in rs:
-        # constant linear density on the circle: radius grows with R.
-        # 4.9 m spacing -> ~20 robots inside the 50 m comms radius, so the
-        # 24-slot capacity covers the true in-range degree (exact reference
-        # connectivity, robot.rs:1441-1586; nbr_overflow is reported and
-        # must stay 0 over the measured window)
-        circle_radius = max(200.0, R * 4.9 / (2 * np.pi))
-        world = 2.6 * circle_radius
-        specs = circle_formation(R, circle_radius=circle_radius, target_speed=speed)
-        params, state, sdf = build_scenario(
-            specs,
-            target_speed=speed,
-            planning_horizon=5.0,
-            hz=10.0,
-            comms_radius=50.0,
-            internal=10,
-            external=10,
-            schedule=ScheduleKind.CENTERED,
-            n_slots=24,
-            world=(world, world),
-            sdf=np.ones((128, 128)),
-            dtype=jnp.float32,
-            despawn_on_final_waypoint=False,
-            use_pallas=True,
-            ext_exchange=ext,
-            grid_cell_size=50.0,
-            grid_capacity=32,
-            collision_partners=8,
-        )
+        params, state, sdf = scale_swarm(R, ext_exchange=ext)
         n_ticks = 10
         run = jax.jit(partial(T.run_ticks, n=n_ticks), static_argnums=2)
         t0 = time.perf_counter()
-        state = run(state, sdf, params)
-        _ = int(np.asarray(state.tick))
+        state = jax.block_until_ready(run(state, sdf, params))
         compile_s = time.perf_counter() - t0
-        state = run(state, sdf, params)
-        _ = int(np.asarray(state.tick))
+        state = jax.block_until_ready(run(state, sdf, params))
         reps = 3
         t0 = time.perf_counter()
         for _ in range(reps):
-            state = run(state, sdf, params)
-            _ = int(np.asarray(state.tick))
+            state = jax.block_until_ready(run(state, sdf, params))
         ms = (time.perf_counter() - t0) / (reps * n_ticks) * 1e3
         rt = 100.0 / ms  # 10 Hz deadline
         print(
@@ -88,7 +58,8 @@ def main():
             f"(compile {compile_s:.0f}s, mean_degree "
             f"{float(jnp.sum(state.nbr_mask)) / R:.2f}, "
             f"nbr_overflow {int(np.asarray(state.nbr_overflow))}, "
-            f"grid_overflow {int(np.asarray(state.grid_overflow))})"
+            f"grid_overflow {int(np.asarray(state.grid_overflow))}, "
+            f"{jax.devices()[0].device_kind})"
         )
 
 

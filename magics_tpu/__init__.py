@@ -1,4 +1,4 @@
-"""magics_tpu — a TPU-native multi-robot GBP trajectory-optimization engine.
+"""magics_tpu — a multi-robot GBP trajectory-optimization engine in JAX.
 
 A from-scratch JAX/XLA/Pallas implementation of the capabilities of the
 AU-Master-Thesis/magics reference (Rust/Bevy, gbpplanner algorithm): thousands

@@ -12,9 +12,8 @@ import math
 from typing import Any, Optional
 
 import numpy as np
-import yaml
 
-from magics_tpu.env.model import _TaggedLoader  # shared tagged-YAML loader
+from magics_tpu.env.model import load_tagged_yaml
 
 
 @dataclasses.dataclass
@@ -228,7 +227,7 @@ class FormationGroup:
 
     @classmethod
     def from_yaml(cls, text: str) -> "FormationGroup":
-        data = yaml.load(text, Loader=_TaggedLoader)
+        data = load_tagged_yaml(text)
         return cls(formations=[Formation.parse(f) for f in data.get("formations", [])])
 
     @classmethod

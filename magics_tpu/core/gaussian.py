@@ -17,6 +17,8 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 
+from magics_tpu.core.linalg import mv
+
 
 class NotPositiveSemiDefinite(ValueError):
     """Raised when a precision/covariance matrix is not invertible PSD
@@ -51,7 +53,7 @@ class MultivariateNormal:
         mean = jnp.asarray(mean)
         cov = jnp.asarray(cov)
         lam = _inv(cov)
-        eta = jnp.einsum("...ij,...j->...i", lam, mean)
+        eta = mv(lam, mean)
         return cls(eta=eta, lam=lam)
 
     @classmethod
@@ -59,7 +61,7 @@ class MultivariateNormal:
         mean = jnp.asarray(mean)
         lam = jnp.asarray(lam)
         _inv(lam)
-        eta = jnp.einsum("...ij,...j->...i", lam, mean)
+        eta = mv(lam, mean)
         return cls(eta=eta, lam=lam)
 
     # -- accessors (lib.rs:168-210) -------------------------------------
@@ -69,7 +71,7 @@ class MultivariateNormal:
         return self.eta.shape[-1]
 
     def mean(self) -> jax.Array:
-        return jnp.einsum("...ij,...j->...i", _inv(self.lam), self.eta)
+        return mv(_inv(self.lam), self.eta)
 
     def covariance(self) -> jax.Array:
         return _inv(self.lam)

@@ -1,7 +1,7 @@
 """Batched small-matrix linear algebra for the GBP core.
 
-Everything here is shaped for the TPU: DOFS = 4, factors have at most two
-neighbours, so all inverses are batched 4x4 and the Schur-complement
+DOFS = 4 and factors have at most two neighbours, so all inverses are
+batched 4x4 and the Schur-complement
 marginalization (reference: crates/magics/src/factorgraph/factor/
 marginalise_factor_distance.rs:55-127) specialises to closed-form block ops on
 `[..., 4, 4]` tensors — no dynamic matrix partitioning, no LAPACK calls, just
@@ -17,10 +17,9 @@ import jax.numpy as jnp
 def mm(a: jax.Array, b: jax.Array) -> jax.Array:
     """Batched tiny matmul [..., n, k] @ [..., k, m] as multiply-reduce.
 
-    XLA on TPU lowers small batched `dot_general`s onto the 128x128 MXU,
-    padding k=4/8 contractions ~1000x; spelled as broadcast-multiply + sum
-    the op stays on the VPU and fuses with its neighbours (measured ~2x on
-    the whole GBP slot at R=1024).
+    Spelled as broadcast-multiply + sum, a k=4 contraction stays an
+    elementwise op that fuses with its neighbours, never becomes a batched
+    `dot_general` call, and never runs at reduced (TF32) precision.
     """
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
@@ -31,7 +30,7 @@ def mtm(a: jax.Array, b: jax.Array) -> jax.Array:
 
 
 def mv(a: jax.Array, v: jax.Array) -> jax.Array:
-    """Batched tiny matvec [..., n, k] @ [..., k] (VPU-friendly)."""
+    """Batched tiny matvec [..., n, k] @ [..., k] as multiply-reduce."""
     return jnp.sum(a * v[..., None, :], axis=-1)
 
 

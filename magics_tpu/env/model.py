@@ -10,11 +10,11 @@ same `environment.yaml` files the reference ships.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import numpy as np
-import yaml
 
 
 @dataclasses.dataclass
@@ -142,20 +142,41 @@ def _point_in_polygon(x, y, poly):
 SHAPE_KINDS = (Circle, Rectangle, Triangle, RegularPolygon, Polygon)
 
 
-class _TaggedLoader(yaml.SafeLoader):
+@functools.cache
+def _tagged_loader():
     """SafeLoader that folds serde's `!variant`-style local tags into
-    single-key dicts: `!circle {radius: 1}` -> {"circle": {radius: 1}}."""
+    single-key dicts: `!circle {radius: 1}` -> {"circle": {radius: 1}}.
+
+    PyYAML is imported here, not at module level, so the simulator runs
+    without it; only parsing a scenario's YAML files needs it."""
+    try:
+        import yaml
+    except ImportError as e:
+        raise ImportError(
+            "reading environment/formation YAML files needs PyYAML "
+            "(pip install pyyaml)"
+        ) from e
+
+    class TaggedLoader(yaml.SafeLoader):
+        pass
+
+    def tagged(loader, tag_suffix: str, node):
+        if isinstance(node, yaml.MappingNode):
+            return {tag_suffix: loader.construct_mapping(node, deep=True)}
+        if isinstance(node, yaml.SequenceNode):
+            return {tag_suffix: loader.construct_sequence(node, deep=True)}
+        return {tag_suffix: loader.construct_scalar(node)}
+
+    TaggedLoader.add_multi_constructor("!", tagged)
+    return TaggedLoader
 
 
-def _tagged(loader: yaml.Loader, tag_suffix: str, node: yaml.Node):
-    if isinstance(node, yaml.MappingNode):
-        return {tag_suffix: loader.construct_mapping(node, deep=True)}
-    if isinstance(node, yaml.SequenceNode):
-        return {tag_suffix: loader.construct_sequence(node, deep=True)}
-    return {tag_suffix: loader.construct_scalar(node)}
+def load_tagged_yaml(text: str) -> Any:
+    """Parse a reference YAML document with its serde-style tags."""
+    loader = _tagged_loader()
+    import yaml
 
-
-_TaggedLoader.add_multi_constructor("!", _tagged)
+    return yaml.load(text, Loader=loader)
 
 
 @dataclasses.dataclass
@@ -197,7 +218,7 @@ class Environment:
 
     @classmethod
     def from_yaml(cls, text: str) -> "Environment":
-        data = yaml.load(text, Loader=_TaggedLoader)
+        data = load_tagged_yaml(text)
         tiles = data["tiles"]
         settings = tiles["settings"]
         sdf_cfg = settings.get("sdf") or {}

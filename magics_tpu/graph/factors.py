@@ -151,27 +151,13 @@ def obstacle_taps(
     sdf: jax.Array,        # [H, W] float in [0, 1]
     world_size: tuple[float, float],
     dtype=jnp.float32,
-    method: str | None = None,
 ) -> tuple[jax.Array, jax.Array, jax.Array]:
-    """The three SDF samples (h0, h(+dx), h(+dy)) each obstacle factor needs.
-
-    Split out from the message math so the lookup can run in XLA while the
-    arithmetic fuses into the Pallas slot kernel (kernels/gbp_slot.py).
-
-    `method`: "gather" indexes the image directly — fast on CPU, but XLA's
-    TPU gather serialises (~0.43 ms per 20k taps at R=1024). "onehot"
-    contracts a one-hot row selector against the image on the MXU and reduces
-    the column selector on the VPU (~0.17 ms, bandwidth-bound) — bit-exact
-    with the gather because each product picks exactly one f32 table entry
-    (precision "highest" keeps the MXU in f32). Default: by backend.
-    """
+    """The three SDF samples (h0, h(+dx), h(+dy)) each obstacle factor needs."""
     H, W = sdf.shape
     ww, wh = world_size
     x_scale = W / ww
     y_scale = H / wh
     delta = obstacle_delta((H, W), world_size)
-    if method is None:
-        method = "onehot" if jax.default_backend() == "tpu" else "gather"
 
     def measure(px, py):
         # world -> pixel (obstacle.rs:147-155). Rust's `as u32` cast truncates
@@ -183,17 +169,7 @@ def obstacle_taps(
         xi = jnp.clip(jnp.floor(jnp.maximum(xf, 0.0)), 0, W - 1).astype(jnp.int32)
         yi = jnp.clip(jnp.floor(jnp.maximum(yf, 0.0)), 0, H - 1).astype(jnp.int32)
         inside = (xf < W) & (yf < H)
-        if method == "onehot":
-            oh_y = (yi[..., None] == jnp.arange(H, dtype=jnp.int32)).astype(
-                sdf.dtype
-            )
-            rows = jnp.einsum(
-                "...h,hw->...w", oh_y, sdf, precision="highest"
-            )
-            oh_x = xi[..., None] == jnp.arange(W, dtype=jnp.int32)
-            val = 1.0 - jnp.sum(jnp.where(oh_x, rows, 0.0), axis=-1)
-        else:
-            val = 1.0 - sdf[yi, xi]
+        val = 1.0 - sdf[yi, xi]
         return jnp.where(inside, val, 0.0).astype(dtype)
 
     px = v2f_mu[..., 0]
@@ -219,7 +195,7 @@ def obstacle_messages_from_taps(
     # unary: message is the potential itself (marginalise_factor_distance.rs:63-72)
     # eta_f = J^T lam_m (J X0 + (0 - h0)); with scalar measurement this is
     # J * lam_m * (J . X0 - h0)
-    jx0 = jnp.einsum("...i,...i->...", J, v2f_mu.astype(dtype))
+    jx0 = jnp.sum(J * v2f_mu.astype(dtype), axis=-1)
     eta_f = J * (lam_m * (jx0 - h0))[..., None]
     lam_f = lam_m * J[..., :, None] * J[..., None, :]
     return eta_f, lam_f
@@ -289,7 +265,7 @@ def interrobot_factor_messages(
 
     lam_m = 1.0 / (sigma * sigma)
     x0 = jnp.concatenate([x_int, x_ext], axis=-1).astype(dtype)  # [..., 8]
-    jx0 = jnp.einsum("...i,...i->...", J, x0)
+    jx0 = jnp.sum(J * x0, axis=-1)
     eta_f = J * (lam_m * (jx0 - h0))[..., None]             # [..., 8]
     lam_f = lam_m * J[..., :, None] * J[..., None, :]       # [..., 8, 8]
 
@@ -502,66 +478,6 @@ def interrobot_rank1_messages_compact(
     return jnp.stack([gx * ok, gy * ok, t * ok, s * ok], axis=-1)
 
 
-def interrobot_rank1_messages_compact_hot(
-    tab: jax.Array,          # [V1, 8, K, R] gathered compact tables, hot
-    seeded: jax.Array,       # [V1, K, R] bool
-    p_ext: jax.Array,        # [2, V1, K, R]
-    safety: jax.Array,       # [K, R]
-    tiny: jax.Array,         # [V1, K, R]
-    sigma: float,
-    dtype=jnp.float32,
-) -> jax.Array:
-    """`interrobot_rank1_messages_compact` with the ROBOT AXIS LAST on every
-    operand (the hot layout of kernels/hot.py) — returns [4, V1, K, R].
-
-    Identical arithmetic, different index order: in the hot-layout driver
-    the robot-minor physical layout of ext_inbox/state would otherwise make
-    XLA physically re-lay the [R, K, V-1, 8] gathered tables twice per
-    external pass (~37 ms/tick at R=10240 measured); computing in hot index
-    space leaves one 2-D transpose of the gather output as the only
-    relayout.
-    """
-    snap_x, snap_y = tab[:, 0], tab[:, 1]
-    mcx, mcy = tab[:, 2], tab[:, 3]
-    Sxx, Sxy, Syy = tab[:, 4], tab[:, 5], tab[:, 6]
-    cav_valid = (tab[:, 7] > 0.5) & seeded
-
-    dx_raw = snap_x - p_ext[0]
-    dy_raw = snap_y - p_ext[1]
-    dist2_raw = dx_raw * dx_raw + dy_raw * dy_raw
-    saf = safety[None, :, :]
-    skipped = dist2_raw >= saf * saf
-
-    dx = dx_raw + tiny
-    dy = dy_raw + tiny
-    r = jnp.sqrt(dx * dx + dy * dy)
-    within = r <= saf
-
-    h0 = jnp.where(within, 1.0 - r / saf, 0.0).astype(dtype)
-    safe_r = jnp.where(r > 0, r, 1.0)
-    scale = jnp.where(within, -1.0 / (saf * safe_r), 0.0).astype(dtype)
-    gx = dx.astype(dtype) * scale
-    gy = dy.astype(dtype) * scale
-
-    alpha = jnp.asarray(1.0 / (sigma * sigma), dtype)
-    jx0 = gx * dx_raw.astype(dtype) + gy * dy_raw.astype(dtype)
-    resid = jx0 - h0
-
-    u = gx * gx * Sxx + 2.0 * gx * gy * Sxy + gy * gy * Syy
-    den = 1.0 + alpha * u
-    s = alpha / den
-    t = alpha * (gx * mcx + gy * mcy - resid) / den
-
-    gmax2 = jnp.maximum(jnp.abs(gx), jnp.abs(gy)) ** 2
-    finite = jnp.isfinite(s) & jnp.isfinite(t)
-    rtol = 1e-4 if dtype == jnp.float32 else 1e-12
-    negligible = jnp.abs(s) * gmax2 <= rtol * alpha * gmax2
-    valid = cav_valid & finite & ~negligible & ~skipped
-
-    ok = valid.astype(dtype)
-    return jnp.stack([gx * ok, gy * ok, t * ok, s * ok], axis=0)
-
-
 def rank1_eta_lam(msg: jax.Array) -> tuple[jax.Array, jax.Array]:
     """Expand compact rank-1 messages [..., (gx, gy, t, s)] to information
     form (eta [..., 4], lam [..., 4, 4]) — only the position block is ever
@@ -577,15 +493,27 @@ def rank1_eta_lam(msg: jax.Array) -> tuple[jax.Array, jax.Array]:
     return eta, lam
 
 
+def rank1_sum_compact(msg: jax.Array, axis: int = 1) -> jax.Array:
+    """Sum compact rank-1 messages over `axis` into the five nonzero
+    information-form entries [..., (eta_x, eta_y, lam_xx, lam_xy, lam_yy)]."""
+    gx, gy, t, s = msg[..., 0], msg[..., 1], msg[..., 2], msg[..., 3]
+    return jnp.stack(
+        [
+            jnp.sum(gx * t, axis=axis),
+            jnp.sum(gy * t, axis=axis),
+            jnp.sum(s * gx * gx, axis=axis),
+            jnp.sum(s * gx * gy, axis=axis),
+            jnp.sum(s * gy * gy, axis=axis),
+        ],
+        axis=-1,
+    )
+
+
 def rank1_sum(msg: jax.Array, axis: int = 1) -> tuple[jax.Array, jax.Array]:
     """Sum compact rank-1 messages over `axis`, returning dense (eta [..., 4],
     lam [..., 4, 4]) with only the 2x2 position block populated."""
-    gx, gy, t, s = msg[..., 0], msg[..., 1], msg[..., 2], msg[..., 3]
-    ex = jnp.sum(gx * t, axis=axis)
-    ey = jnp.sum(gy * t, axis=axis)
-    lxx = jnp.sum(s * gx * gx, axis=axis)
-    lxy = jnp.sum(s * gx * gy, axis=axis)
-    lyy = jnp.sum(s * gy * gy, axis=axis)
+    summed = rank1_sum_compact(msg, axis)
+    ex, ey, lxx, lxy, lyy = (summed[..., k] for k in range(5))
     z = jnp.zeros_like(ex)
     eta = jnp.stack([ex, ey, z, z], axis=-1)
     row0 = jnp.stack([lxx, lxy, z, z], axis=-1)
@@ -733,7 +661,7 @@ def tracking_factor_messages(
     J = jnp.concatenate([g, jnp.zeros_like(g)], axis=-1)  # [R, F, 4]
 
     lam_m = 1.0 / (sigma * sigma)
-    jx0 = jnp.einsum("...i,...i->...", J, v2f_mu.astype(dtype))
+    jx0 = jnp.sum(J * v2f_mu.astype(dtype), axis=-1)
     eta_f = J * (lam_m * (jx0 - h0))[..., None]
     lam_f = lam_m * J[..., :, None] * J[..., None, :]
 

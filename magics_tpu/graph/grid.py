@@ -24,7 +24,7 @@ approximation is the fixed cell capacity C: overflowing robots are dropped
 from that cell's bucket (counted nowhere). Capacity is a builder knob sized
 from expected density; `grid_overflow` reports drops for validation runs.
 
-TPU notes: the bucket build is one sort over [R] keys plus gathers — all
+Shapes: the bucket build is one sort over [R] keys plus gathers — all
 static shapes, no host sync. The candidate tables are [R, M] with
 M = stencil * capacity (e.g. 25 * 16 = 400), so memory is O(R * M) instead
 of O(R^2): at R = 16k that is ~25 MB instead of ~1 GB per f32 matrix.
@@ -134,9 +134,8 @@ def build_grid_tables(
 
     Why: the stencil lookup `bucket[ncid]` gathers [R, stencil] ROWS — fast.
     But then fetching each candidate's position/radius (`pos[cand]`) is an
-    [R, stencil*C] element gather — R*M near-scalar accesses that dominate
-    the whole tick at swarm scale (TPU gathers cost per ROW, not per byte;
-    ~44 ms/tick at R=16k, M=288 in the profiler trace). Scattering the
+    [R, stencil*C] element gather — R*M near-scalar accesses, where a
+    gather's cost grows with the number of rows it fetches. Scattering the
     positions into bucket-aligned tables at build time turns those into the
     same cheap [R, stencil] row gathers as the ids. Empty bucket entries
     hold a far-away position (1e30) so distance tests fail naturally.

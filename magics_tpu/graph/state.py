@@ -134,8 +134,7 @@ class GbpParams:
     #                        tables (identical arithmetic — bit-equal) and
     #                        a locally-maintained mirror of what the peer
     #                        holds of their own positions. Removes the
-    #                        per-slot outbox gather (ARCHITECTURE §8
-    #                        lever (a)).
+    #                        per-slot outbox gather.
     #   "receiver_compact" — like "receiver" but gathering the per-variable
     #                        compact cavity tables [R, V-1, 8] and using the
     #                        Sherman-Morrison scalar form
@@ -145,11 +144,12 @@ class GbpParams:
     #                        bit-identical.
     ext_exchange: str = "sender"
 
-    # Use the fused Pallas slot kernel (kernels/gbp_slot.py) for internal GBP
-    # slots; `pallas_interpret` runs it in interpreter mode (CPU testing).
+    # Run the factor and belief arithmetic of the GBP passes in the fused
+    # GPU kernels (kernels/gbp_slot.py, Pallas through Triton) instead of
+    # XLA's lowering of graph/factors.py + graph/variables.py.
+    # `pallas_interpret` runs them in interpreter mode (CPU testing).
     use_pallas: bool = False
     pallas_interpret: bool = False
-    pallas_r_tile: int = 128
 
     # Spatial-grid neighbour search (graph/grid.py). 0 keeps the reference's
     # dense O(R^2) scans (exact at small R); > 0 bins robots into cells of

@@ -72,18 +72,13 @@ def _gather_from_peer(arr: jax.Array, nbr_idx, back, mask):
     """out[r, k, ...] = arr[nbr_idx[r,k], back[r,k], ...], 0 where ~mask.
     `arr` must be a GLOBAL [R_total, K, ...] array (comm.all_robots'd).
 
-    Lowered as a single-axis row gather on the flattened [R*K, ...] table,
-    with operand and result layout-pinned row-major (kernels/layout.py —
-    XLA otherwise assigns the Pallas kernels' robot-minor layout to these
-    tables and the gather scalarises, ~9x slower at swarm scale)."""
-    from magics_tpu.kernels.layout import layout_pin
-
+    Lowered as a single-axis row gather on the flattened [R*K, ...] table."""
     R = arr.shape[0]
     K = arr.shape[1]
     rest = arr.shape[2:]
-    flat = layout_pin(arr.reshape(R * K, -1))
+    flat = arr.reshape(R * K, -1)
     idx = jnp.clip(nbr_idx, 0, R - 1) * K + jnp.clip(back, 0, K - 1)
-    out = layout_pin(flat[idx.reshape(-1)]).reshape(idx.shape + rest)
+    out = flat[idx.reshape(-1)].reshape(idx.shape + rest)
     return jnp.where(_exp(mask, out.ndim - 2), out, 0)
 
 
@@ -240,8 +235,7 @@ def update_connectivity(state: SimState, params: GbpParams, comm=LOCAL) -> SimSt
     # is symmetric, so mutual picks survive the reciprocity mask where the
     # old ascending-id fill collapsed to the lowest-id clique. Dropped
     # candidates are counted in nbr_overflow (never silent).
-    # top_k + gather, not scatter: a scatter with [R, R] updates serialises
-    # on TPU (~14 ms at R=1024 vs ~0.9 ms, bench/profile_tick.py).
+    # top_k + gather: slot assignment without a scatter of [R, R] updates.
     inf = jnp.asarray(jnp.inf, d2.dtype)
     key = jnp.where(new_pair, d2, inf)                    # [Rl, R]
     neg_d, cand_id = jax.lax.top_k(-key, min(K, R))       # K nearest new pairs
@@ -352,9 +346,8 @@ def update_connectivity_grid(
     # assign new neighbours to free slots nearest-first (see
     # update_connectivity — exact when K >= in-range degree, mutual-nearest
     # truncation with nbr_overflow accounting beyond that). lax.top_k of the
-    # negated distance keys is ~5x cheaper than a full [R, M] sort at
-    # M ~ 300 (and no scatter: TPU scatters with [R, M] updates serialise,
-    # see bench/profile_tick.py).
+    # negated distance keys selects K of M ~ 300 candidates without a full
+    # [R, M] sort or a scatter.
     inf = jnp.asarray(jnp.inf, d2.dtype)
     key = jnp.where(new_pair, d2, inf)
     M = key.shape[1]
@@ -686,6 +679,17 @@ def internal_factor_pass(state: SimState, sdf: jax.Array, params: GbpParams) -> 
     gate = state.active & _not_idle(state)
     g2 = _exp(gate, 2)
     g3 = _exp(gate, 3)
+    # factorgraph.rs:701 — skip tracking for the first 10 factor passes
+    t_gate = gate & (state.iter_count_factor >= TRACKING_SKIP_FIRST_N_FACTOR_ITERS)
+    iter_count = state.iter_count_factor + gate.astype(jnp.int32)
+
+    if params.use_pallas:
+        from magics_tpu.kernels.gbp_slot import factor_pass
+
+        updates = factor_pass(
+            state, sdf, params, gate, t_gate, interpret=params.pallas_interpret
+        )
+        return replace(state, iter_count_factor=iter_count, **updates)
 
     updates: dict = {}
 
@@ -716,8 +720,6 @@ def internal_factor_pass(state: SimState, sdf: jax.Array, params: GbpParams) -> 
         updates["obs_f2v_lam"] = jnp.where(g3, o_lam, state.obs_f2v_lam)
 
     if params.tracking_enabled and V > 2:
-        # factorgraph.rs:701 — skip tracking for the first 10 factor passes
-        t_gate = gate & (state.iter_count_factor >= TRACKING_SKIP_FIRST_N_FACTOR_ITERS)
         t2 = _exp(t_gate, 2)
         (
             t_eta,
@@ -751,7 +753,7 @@ def internal_factor_pass(state: SimState, sdf: jax.Array, params: GbpParams) -> 
         )
         updates["trk_last_val"] = jnp.where(measured, last_val, state.trk_last_val)
 
-    updates["iter_count_factor"] = state.iter_count_factor + gate.astype(jnp.int32)
+    updates["iter_count_factor"] = iter_count
     return replace(state, **updates)
 
 
@@ -759,7 +761,15 @@ def internal_variable_pass(state: SimState, params: GbpParams, comm=LOCAL) -> Si
     """Belief update + responses to internal factors (factorgraph.rs:762-790)."""
     R, V = state.prior_mean.shape[:2]
     gate = state.active & _not_idle(state)
-    g1, g2, g3 = _exp(gate, 1), _exp(gate, 2), _exp(gate, 3)
+    g2, g3 = _exp(gate, 2), _exp(gate, 3)
+    if params.use_pallas:
+        from magics_tpu.kernels.gbp_slot import belief_pass
+
+        updates = belief_pass(
+            state, params, gate, responses=True,
+            interpret=params.pallas_interpret,
+        )
+        return _seed_interrobot(replace(state, **updates), params, gate, comm)
 
     eta, lam = VU.sum_messages(
         prior_mean=state.prior_mean,
@@ -813,34 +823,33 @@ def internal_variable_pass(state: SimState, params: GbpParams, comm=LOCAL) -> Si
     updates["snap_eta"] = jnp.where(g2, belief_eta, state.snap_eta)
     updates["snap_lam"] = jnp.where(g3, belief_lam, state.snap_lam)
     updates["snap_mu"] = jnp.where(g2, belief_mean, state.snap_mu)
-    if params.interrobot_enabled:
-        if params.ext_exchange != "sender":
-            # receiver-computes mirror of the PEER's seeded flag: the peer's
-            # cavity for its reciprocal slot went live where ITS internal
-            # gate held and its slot is alive (state.py mirror semantics)
-            gate_all = comm.all_robots(gate)
-            src = jnp.clip(state.nbr_idx, 0, gate_all.shape[0] - 1)
-            updates["ir_int_seeded"] = jnp.where(
-                (gate_all[src] & state.nbr_has_back)[..., None],
-                True,
-                state.ir_int_seeded,
-            )
-        else:
-            updates["ir_int_seeded"] = jnp.where(
-                g1[..., None] & state.nbr_mask[..., None], True, state.ir_int_seeded
-            )
-
-    return replace(state, **updates)
+    return _seed_interrobot(replace(state, **updates), params, gate, comm)
 
 
-def _gather_rows_pinned(arr: jax.Array, idx: jax.Array) -> jax.Array:
-    """out[r, k, :] = arr[idx[r, k], :] for a 2-D table, with row-major
-    layout pins on both sides (see _gather_from_peer's rationale)."""
-    from magics_tpu.kernels.layout import layout_pin
-
-    flat = layout_pin(arr)
-    out = layout_pin(flat[idx.reshape(-1)])
-    return out.reshape(idx.shape + arr.shape[1:])
+def _seed_interrobot(
+    state: SimState, params: GbpParams, gate: jax.Array, comm=LOCAL
+) -> SimState:
+    """The internal variable pass's response to the robot's own inter-robot
+    factors seeds their internal inbox (ir_int_seeded)."""
+    if not params.interrobot_enabled:
+        return state
+    if params.ext_exchange != "sender":
+        # receiver-computes mirror of the PEER's seeded flag: the peer's
+        # cavity for its reciprocal slot went live where ITS internal
+        # gate held and its slot is alive (state.py mirror semantics)
+        gate_all = comm.all_robots(gate)
+        src = jnp.clip(state.nbr_idx, 0, gate_all.shape[0] - 1)
+        seeded = jnp.where(
+            (gate_all[src] & state.nbr_has_back)[..., None],
+            True,
+            state.ir_int_seeded,
+        )
+    else:
+        seeded = jnp.where(
+            gate[:, None, None] & state.nbr_mask[..., None], True,
+            state.ir_int_seeded,
+        )
+    return replace(state, ir_int_seeded=seeded)
 
 
 def _external_factor_pass_receiver(
@@ -897,31 +906,7 @@ def _external_factor_pass_receiver(
             state.snap_mu, state.snap_eta, state.snap_lam, dtype=f
         )  # [R, V1, 8]
         tables_all = comm.all_robots(tables).reshape(-1, V1 * 8)
-        if params.use_pallas:
-            # hot-layout driver: gather rows in (k-major, r-minor) order and
-            # compute in hot index space — the bitcast-compatible layout of
-            # ext_inbox's robot-minor storage, so the gather-output
-            # transpose is the only physical relayout (see
-            # interrobot_rank1_messages_compact_hot).
-            rows = tables_all[src.T.reshape(-1)]          # [K*R, V1*8]
-            tab_hot = rows.T.reshape(V1, 8, K, R)         # one 2-D transpose
-            seeded_hot = jnp.transpose(seeded, (2, 1, 0))
-            p_ext_hot = jnp.transpose(p_ext, (3, 2, 1, 0))
-            saf_hot = (params.safety_distance_multiplier * rad_all)[src].T
-            tiny_hot = jnp.transpose(tiny, (2, 1, 0))
-            msg_hot = F.interrobot_rank1_messages_compact_hot(
-                tab_hot, seeded_hot, p_ext_hot, saf_hot, tiny_hot,
-                params.sigma_factor_interrobot, dtype=f,
-            )  # [4, V1, K, R]
-            deliver_hot = deliver.T[None, None]
-            inbox_hot = jnp.transpose(state.ext_inbox, (3, 2, 1, 0))
-            out_hot = jnp.where(deliver_hot, msg_hot, inbox_hot)
-            ext_inbox = jnp.transpose(out_hot, (3, 2, 1, 0))
-            iter_count = state.iter_count_factor + send_gate.astype(jnp.int32)
-            return replace(
-                state, ext_inbox=ext_inbox, iter_count_factor=iter_count
-            )
-        peer_tab = _gather_rows_pinned(tables_all, src).reshape(R, K, V1, 8)
+        peer_tab = tables_all[src].reshape(R, K, V1, 8)
         msg = F.interrobot_rank1_messages_compact(
             peer_tab, seeded, p_ext, safety, tiny,
             params.sigma_factor_interrobot, dtype=f,
@@ -936,7 +921,7 @@ def _external_factor_pass_receiver(
             axis=-1,
         )  # [R, V1, 24]
         pack_all = comm.all_robots(pack).reshape(-1, V1 * 24)
-        peer = _gather_rows_pinned(pack_all, src).reshape(R, K, V1, 24)
+        peer = pack_all[src].reshape(R, K, V1, 24)
         s3 = seeded[..., None]
         x_int = jnp.where(s3, peer[..., 0:4], 0.0)
         cav_eta = jnp.where(s3, peer[..., 4:8], 0.0)
@@ -972,51 +957,42 @@ def external_factor_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimS
 
     send_gate = state.active & state.antenna & _not_idle(state)  # [R]
 
-    if params.use_pallas:
-        # fused kernel: no [R, K, V1, 4, 4] intermediates (kernels/ir_slot.py)
-        from magics_tpu.kernels.ir_slot import interrobot_messages_pallas
+    # linearisation inputs; the internal cavity is the belief snapshot
+    # where the variable has ever responded (empty message = zeros else)
+    seeded = state.ir_int_seeded  # [R, K, V-1]
+    own_mu = state.snap_mu[:, None, 1:, :]  # [R, 1, V-1, 4]
+    own_eta = state.snap_eta[:, None, 1:, :]
+    own_lam = state.snap_lam[:, None, 1:, :, :]
+    s3 = seeded[..., None]
+    x_int = jnp.where(s3, own_mu, 0.0)
+    cav_eta = jnp.where(s3, own_eta, 0.0)
+    cav_lam = jnp.where(s3[..., None], own_lam, 0.0)
 
-        msg = interrobot_messages_pallas(
-            state, params, r_tile=params.pallas_r_tile,
-            interpret=params.pallas_interpret, comm=comm,
-        )  # [R, K, V-1, 4]
-    else:
-        # linearisation inputs; the internal cavity is the belief snapshot
-        # where the variable has ever responded (empty message = zeros else)
-        seeded = state.ir_int_seeded  # [R, K, V-1]
-        own_mu = state.snap_mu[:, None, 1:, :]  # [R, 1, V-1, 4]
-        own_eta = state.snap_eta[:, None, 1:, :]
-        own_lam = state.snap_lam[:, None, 1:, :, :]
-        s3 = seeded[..., None]
-        x_int = jnp.where(s3, own_mu, 0.0)
-        cav_eta = jnp.where(s3, own_eta, 0.0)
-        cav_lam = jnp.where(s3[..., None], own_lam, 0.0)
+    safety = (params.safety_distance_multiplier * state.radius)[:, None, None]
+    safety = jnp.broadcast_to(safety, (R, K, V1))
+    # Per-factor tiny offset (interrobot.rs:75,91-106). The reference
+    # derives it from a global factor-creation counter; besides guarding
+    # div/0 the *distinctness* of the offsets breaks symmetric head-on
+    # deadlocks, so we keep per-factor-distinct values — but
+    # slot-deterministic instead of creation-order-dependent, so results
+    # are reproducible across shardings.
+    tiny = jnp.asarray(1e-6, f) * (
+        gids[:, None, None] * (K * V1)
+        + jnp.arange(K, dtype=f)[None, :, None] * V1
+        + jnp.arange(V1, dtype=f)[None, None, :]
+        + 1.0
+    )
 
-        safety = (params.safety_distance_multiplier * state.radius)[:, None, None]
-        safety = jnp.broadcast_to(safety, (R, K, V1))
-        # Per-factor tiny offset (interrobot.rs:75,91-106). The reference
-        # derives it from a global factor-creation counter; besides guarding
-        # div/0 the *distinctness* of the offsets breaks symmetric head-on
-        # deadlocks, so we keep per-factor-distinct values — but
-        # slot-deterministic instead of creation-order-dependent, so results
-        # are reproducible across shardings.
-        tiny = jnp.asarray(1e-6, f) * (
-            gids[:, None, None] * (K * V1)
-            + jnp.arange(K, dtype=f)[None, :, None] * V1
-            + jnp.arange(V1, dtype=f)[None, None, :]
-            + 1.0
-        )
-
-        msg = F.interrobot_rank1_messages(
-            x_int,
-            state.ir_v2f_ext_pos,
-            cav_eta,
-            cav_lam,
-            safety,
-            tiny,
-            params.sigma_factor_interrobot,
-            dtype=f,
-        )  # [R, K, V-1, 4]
+    msg = F.interrobot_rank1_messages(
+        x_int,
+        state.ir_v2f_ext_pos,
+        cav_eta,
+        cav_lam,
+        safety,
+        tiny,
+        params.sigma_factor_interrobot,
+        dtype=f,
+    )  # [R, K, V-1, 4]
 
     produced = _exp(send_gate, 2) & state.nbr_mask[..., None]  # [R, K, V-1]
     ir_f2v_ext = jnp.where(produced[..., None], msg, state.ir_f2v_ext)
@@ -1025,7 +1001,7 @@ def external_factor_pass(state: SimState, params: GbpParams, comm=LOCAL) -> SimS
     # owned by j = nbr_idx[r,k] at its reciprocal slot. Gated on the sender
     # having produced this pass and the receiver's antenna/mission. Under a
     # sharded comm the peers' outboxes and send gates arrive via all_gather —
-    # THE inter-robot message exchange over ICI/DCN (SURVEY.md §2.4).
+    # the inter-robot message exchange between devices (SURVEY.md §2.4).
     back, has_back = state.nbr_back, state.nbr_has_back
     recv_gate = state.active & state.antenna & _not_idle(state)
     send_gate_all = comm.all_robots(send_gate)
@@ -1066,22 +1042,32 @@ def external_variable_pass(state: SimState, params: GbpParams, comm=LOCAL) -> Si
     gate = state.active & state.antenna & _not_idle(state)
     g2, g3 = _exp(gate, 2), _exp(gate, 3)
 
-    eta, lam = VU.sum_messages(
-        prior_mean=state.prior_mean,
-        prior_sigma=state.prior_sigma,
-        dyn_f2v_eta=state.dyn_f2v_eta,
-        dyn_f2v_lam=state.dyn_f2v_lam,
-        obs_f2v_eta=state.obs_f2v_eta,
-        obs_f2v_lam=state.obs_f2v_lam,
-        trk_f2v_eta=state.trk_f2v_eta,
-        trk_f2v_lam=state.trk_f2v_lam,
-        ext_inbox=state.ext_inbox,
-    )
-    upd = VU.update_beliefs(eta, lam, state.belief_mean)
+    if params.use_pallas:
+        from magics_tpu.kernels.gbp_slot import belief_pass
 
-    belief_eta = jnp.where(g2, upd.eta, state.belief_eta)
-    belief_lam = jnp.where(g3, upd.lam, state.belief_lam)
-    belief_mean = jnp.where(g2, upd.mean, state.belief_mean)
+        beliefs = belief_pass(
+            state, params, gate, responses=False,
+            interpret=params.pallas_interpret,
+        )
+        belief_eta = beliefs["belief_eta"]
+        belief_lam = beliefs["belief_lam"]
+        belief_mean = beliefs["belief_mean"]
+    else:
+        eta, lam = VU.sum_messages(
+            prior_mean=state.prior_mean,
+            prior_sigma=state.prior_sigma,
+            dyn_f2v_eta=state.dyn_f2v_eta,
+            dyn_f2v_lam=state.dyn_f2v_lam,
+            obs_f2v_eta=state.obs_f2v_eta,
+            obs_f2v_lam=state.obs_f2v_lam,
+            trk_f2v_eta=state.trk_f2v_eta,
+            trk_f2v_lam=state.trk_f2v_lam,
+            ext_inbox=state.ext_inbox,
+        )
+        upd = VU.update_beliefs(eta, lam, state.belief_mean)
+        belief_eta = jnp.where(g2, upd.eta, state.belief_eta)
+        belief_lam = jnp.where(g3, upd.lam, state.belief_lam)
+        belief_mean = jnp.where(g2, upd.mean, state.belief_mean)
 
     # deliver into the owning factor's inbox: factor (r, k) receives the
     # response computed by j = nbr_idx[r,k] — the same belief mean for every
@@ -1133,15 +1119,6 @@ def iterate_gbp(state: SimState, sdf: jax.Array, params: GbpParams, comm=LOCAL) 
     """
     if not params.schedule:
         return state
-
-    if params.use_pallas:
-        from magics_tpu.kernels.hot import iterate_gbp_hot
-
-        return iterate_gbp_hot(
-            state, sdf, params,
-            r_tile=params.pallas_r_tile, interpret=params.pallas_interpret,
-            comm=comm,
-        )
 
     def slot(state, internal_flag, external_flag):
         if internal_flag:
@@ -1507,11 +1484,11 @@ def step(
     address space (single chip, or GSPMD-partitioned under plain jit over
     sharded inputs), a ShardComm inside shard_map for explicit collectives.
 
-    Matmul precision is pinned to `highest`: on TPU the default lowers f32
-    matmul inputs to bf16, whose ~8-bit mantissa breaks the information-form
-    belief algebra (the covariance residual check rejects every inversion and
-    beliefs never move). All matmuls here are tiny 4x4/4x8 contractions on
-    the VPU — full f32 costs nothing.
+    Matmul precision is pinned to `highest`: on a GPU the default may run
+    float32 contractions in TF32, whose 10-bit mantissa breaks the
+    information-form belief algebra (the covariance residual check rejects
+    inversions and beliefs stop moving). Every contraction here is a tiny
+    4x4/4x8 one, so full float32 costs nothing.
     """
     with jax.default_matmul_precision("highest"):
         state = activate_due_spawns(state)

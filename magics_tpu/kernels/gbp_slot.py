@@ -1,102 +1,105 @@
-"""Fused Pallas TPU kernel for one *internal* GBP slot.
+"""Fused GBP slot kernels for NVIDIA GPUs (Pallas through Triton).
 
-One slot = internal factor pass + internal variable pass
-(crates/magics/src/factorgraph/factorgraph.rs:686-714, 762-790). The XLA
-lowering of the per-field dense implementation (graph/factors.py,
-graph/variables.py) produces ~150 fused kernels per slot — launch overhead,
-not compute, dominates the tick. This kernel computes the whole slot as ONE
-Pallas program.
+One internal GBP slot is the internal factor pass plus the internal variable
+pass (factorgraph.rs:686-714, 762-790). XLA lowers the per-field dense
+implementation (graph/factors.py, graph/variables.py) to many small fusions
+per slot. Here a slot is two kernels:
 
-Layout ("hot layout"): every scalar field is a [*, V, R] plane stack whose
-last two axes map to (sublane=chain position, lane=robot). All 4x4 / 4-vector
-algebra is unrolled in Python over the leading component axes, so each
-operation the VPU sees is an elementwise op on a [V, R] tile — full lane
-utilisation across robots, V rows of sublanes. R must be a multiple of the
-128-lane tile (callers pad; padded robots carry gate=0).
+  factor kernel    every dynamic, obstacle and tracking factor message
+  belief kernel    belief = prior + inbox, guarded 4x4 inverse, and (for the
+                   internal pass) the responses to the internal factors
 
-The SDF gather for the obstacle factors cannot vectorise across lanes on TPU,
-so the three taps per factor (h0, h+dx, h+dy — factor/obstacle.rs:91-115) are
-gathered in XLA between slots and passed in as [V2, R] planes. Tracking-path
-gathers (record-indexed segment endpoints, factor/tracking.rs:197-346) are
-done in-kernel as one-hot reductions over the [W, R] path planes.
+The belief kernel without responses is also the external variable pass's
+belief update (factorgraph.rs:794-826).
 
-All math mirrors graph/factors.py + graph/variables.py exactly, including the
-empty-message guards of core/linalg.py (det / finite / sane / cancellation
-floor), so the Pallas path and the XLA path are interchangeable to float
-roundoff.
+Layout. Each program takes BLOCK (robot, variable) pairs with flat index
+p = r * V + v, one pair per thread. Every field stays in the state's own
+row-major layout, viewed as a 2-D [rows, components] table. A pair's chain
+neighbours (dynamic edges v and v-1, interior slot v-1) are row loads at an
+offset, under a mask, so no value is ever sliced or shifted and every value
+is a [BLOCK] vector. The SDF and tracking-path lookups are gathers from their
+tables inside the kernel. Outputs alias their inputs and every store is
+masked by the pass's gate, so untouched rows keep their values exactly as the
+`jnp.where(gate, new, old)` of the XLA passes does. Blocks run independently:
+no program reads what another writes.
+
+The arithmetic mirrors graph/factors.py, graph/variables.py and
+core/linalg.py term by term, including the empty-message guards, so the two
+paths agree to float roundoff (tests/test_pallas_slot.py).
 """
 
 from __future__ import annotations
 
-import dataclasses
-from functools import partial
+import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+from magics_tpu.graph.factors import obstacle_delta, rank1_sum_compact
+
+BLOCK = 128      # (robot, variable) pairs per program, one per thread
+NUM_WARPS = 4    # BLOCK / 32
 
 
 # --------------------------------------------------------------------------
-# plane-math helpers: a "vec" is a length-4 list of [*, R] arrays, a "mat" a
-# 4x4 nested list. All ops are elementwise on planes.
+# 4x4 algebra on [BLOCK] vectors. Structural zeros and ones are Python
+# floats, so products with them cost nothing.
 # --------------------------------------------------------------------------
 
-def _vec(arr):  # [4, V, R] -> list of 4 [V, R]
-    return [arr[i] for i in range(4)]
+def _is(x, c):
+    return isinstance(x, float) and x == c
 
 
-def _mat(arr):  # [4, 4, V, R] -> 4x4 list
-    return [[arr[i, j] for j in range(4)] for i in range(4)]
+def _mul(a, b):
+    if _is(a, 0.0) or _is(b, 0.0):
+        return 0.0
+    if _is(a, 1.0):
+        return b
+    if _is(b, 1.0):
+        return a
+    return a * b
 
 
-def _stack_vec(v):  # list -> [4, V, R]
-    return jnp.stack(v)
+def _add(a, b):
+    if _is(a, 0.0):
+        return b
+    if _is(b, 0.0):
+        return a
+    return a + b
 
 
-def _stack_mat(m):  # 4x4 list -> [4, 4, V, R]
-    return jnp.stack([jnp.stack(row) for row in m])
+def _sum(xs):
+    out = 0.0
+    for x in xs:
+        out = _add(out, x)
+    return out
 
 
-def _matvec(m, v):
-    return [sum(m[i][j] * v[j] for j in range(4)) for i in range(4)]
+def _mm(a, b):
+    return [[_sum(_mul(a[i][k], b[k][j]) for k in range(4)) for j in range(4)]
+            for i in range(4)]
 
 
-def _matmat(a, b):
-    return [
-        [sum(a[i][k] * b[k][j] for k in range(4)) for j in range(4)]
-        for i in range(4)
-    ]
+def _mv(a, v):
+    return [_sum(_mul(a[i][k], v[k]) for k in range(4)) for i in range(4)]
+
+
+def _tr(a):
+    return [[a[j][i] for j in range(4)] for i in range(4)]
 
 
 def _madd(a, b):
-    return [[a[i][j] + b[i][j] for j in range(4)] for i in range(4)]
-
-
-def _vadd(a, b):
-    return [a[i] + b[i] for i in range(4)]
-
-
-def _vsub(a, b):
-    return [a[i] - b[i] for i in range(4)]
-
-
-def _mat_absmax(m):
-    r = abs(m[0][0])
-    for i in range(4):
-        for j in range(4):
-            if i or j:
-                r = jnp.maximum(r, abs(m[i][j]))
-    return r
+    return [[_add(a[i][j], b[i][j]) for j in range(4)] for i in range(4)]
 
 
 def _inv4_rowscaled(m):
-    """Port of core.linalg.inv4_rowscaled on planes. Returns (inv, det)."""
+    """core.linalg.inv4_rowscaled on vectors: (inverse, det of scaled)."""
     rowmax = [
-        jnp.maximum(
-            jnp.maximum(abs(m[i][0]), abs(m[i][1])),
-            jnp.maximum(abs(m[i][2]), abs(m[i][3])),
-        )
+        jnp.maximum(jnp.maximum(abs(m[i][0]), abs(m[i][1])),
+                    jnp.maximum(abs(m[i][2]), abs(m[i][3])))
         for i in range(4)
     ]
     d = [jnp.where(rm > 0.0, 1.0 / rm, 1.0) for rm in rowmax]
@@ -108,771 +111,540 @@ def _inv4_rowscaled(m):
     c12 = a[0][1] * a[1][2] - a[0][2] * a[1][1]
     c13 = a[0][1] * a[1][3] - a[0][3] * a[1][1]
     c23 = a[0][2] * a[1][3] - a[0][3] * a[1][2]
-
     d01 = a[2][0] * a[3][1] - a[2][1] * a[3][0]
     d02 = a[2][0] * a[3][2] - a[2][2] * a[3][0]
     d03 = a[2][0] * a[3][3] - a[2][3] * a[3][0]
     d12 = a[2][1] * a[3][2] - a[2][2] * a[3][1]
     d13 = a[2][1] * a[3][3] - a[2][3] * a[3][1]
     d23 = a[2][2] * a[3][3] - a[2][3] * a[3][2]
-
     det = c01 * d23 - c02 * d13 + c03 * d12 + c12 * d03 - c13 * d02 + c23 * d01
 
     adj = [
-        [
-            a[1][1] * d23 - a[1][2] * d13 + a[1][3] * d12,
-            -a[0][1] * d23 + a[0][2] * d13 - a[0][3] * d12,
-            a[3][1] * c23 - a[3][2] * c13 + a[3][3] * c12,
-            -a[2][1] * c23 + a[2][2] * c13 - a[2][3] * c12,
-        ],
-        [
-            -a[1][0] * d23 + a[1][2] * d03 - a[1][3] * d02,
-            a[0][0] * d23 - a[0][2] * d03 + a[0][3] * d02,
-            -a[3][0] * c23 + a[3][2] * c03 - a[3][3] * c02,
-            a[2][0] * c23 - a[2][2] * c03 + a[2][3] * c02,
-        ],
-        [
-            a[1][0] * d13 - a[1][1] * d03 + a[1][3] * d01,
-            -a[0][0] * d13 + a[0][1] * d03 - a[0][3] * d01,
-            a[3][0] * c13 - a[3][1] * c03 + a[3][3] * c01,
-            -a[2][0] * c13 + a[2][1] * c03 - a[2][3] * c01,
-        ],
-        [
-            -a[1][0] * d12 + a[1][1] * d02 - a[1][2] * d01,
-            a[0][0] * d12 - a[0][1] * d02 + a[0][2] * d01,
-            -a[3][0] * c12 + a[3][1] * c02 - a[3][2] * c01,
-            a[2][0] * c12 - a[2][1] * c02 + a[2][2] * c01,
-        ],
+        [a[1][1] * d23 - a[1][2] * d13 + a[1][3] * d12,
+         -a[0][1] * d23 + a[0][2] * d13 - a[0][3] * d12,
+         a[3][1] * c23 - a[3][2] * c13 + a[3][3] * c12,
+         -a[2][1] * c23 + a[2][2] * c13 - a[2][3] * c12],
+        [-a[1][0] * d23 + a[1][2] * d03 - a[1][3] * d02,
+         a[0][0] * d23 - a[0][2] * d03 + a[0][3] * d02,
+         -a[3][0] * c23 + a[3][2] * c03 - a[3][3] * c02,
+         a[2][0] * c23 - a[2][2] * c03 + a[2][3] * c02],
+        [a[1][0] * d13 - a[1][1] * d03 + a[1][3] * d01,
+         -a[0][0] * d13 + a[0][1] * d03 - a[0][3] * d01,
+         a[3][0] * c13 - a[3][1] * c03 + a[3][3] * c01,
+         -a[2][0] * c13 + a[2][1] * c03 - a[2][3] * c01],
+        [-a[1][0] * d12 + a[1][1] * d02 - a[1][2] * d01,
+         a[0][0] * d12 - a[0][1] * d02 + a[0][2] * d01,
+         -a[3][0] * c12 + a[3][1] * c02 - a[3][2] * c01,
+         a[2][0] * c12 - a[2][1] * c02 + a[2][2] * c01],
     ]
-    safe_det = jnp.where(det == 0.0, 1.0, det)
-    inv = [[adj[i][j] / safe_det * d[j] for j in range(4)] for i in range(4)]
+    inv = [[adj[i][j] / det * d[j] for j in range(4)] for i in range(4)]
     return inv, det
 
 
-def _marginalize(eta_a, eta_b, laa, lab, lba, lbb, rtol):
-    """Port of core.linalg.marginalize_two_block on planes.
+# --------------------------------------------------------------------------
+# loads and stores on [rows, components] tables
+# --------------------------------------------------------------------------
 
-    Returns (eta_msg vec, lam_msg mat, valid plane); invalid entries zeroed.
-    """
-    lbb_inv, det = _inv4_rowscaled(lbb)
-    ab_bbinv = _matmat(lab, lbb_inv)
-    eta_msg = _vsub(eta_a, _matvec(ab_bbinv, eta_b))
-    lam_msg = [
-        [laa[i][j] - sum(ab_bbinv[i][k] * lba[k][j] for k in range(4)) for j in range(4)]
-        for i in range(4)
-    ]
+def _ld(ref, rows, mask, col=None):
+    at = ref.at[rows] if col is None else ref.at[rows, col]
+    return plgpu.load(at, mask=mask, other=0)
 
-    finite = jnp.isfinite(eta_msg[0])
+
+def _st(ref, rows, mask, val, like, col=None):
+    if isinstance(val, float):
+        val = jnp.full_like(like, val)
+    # masked-off lanes point one row past the end: the GPU never touches
+    # them, and the interpreter's scatter drops them instead of writing
+    # back stale values over an active lane's row
+    rows = jnp.where(mask, rows, ref.shape[0])
+    at = ref.at[rows] if col is None else ref.at[rows, col]
+    plgpu.store(at, val.astype(ref.dtype), mask=mask)
+
+
+def _ld_vec(ref, rows, mask, off=0, n=4):
+    return [_ld(ref, rows, mask, off + i) for i in range(n)]
+
+
+def _ld_mat(ref, rows, mask, off=0):
+    return [[_ld(ref, rows, mask, off + 4 * i + j) for j in range(4)]
+            for i in range(4)]
+
+
+def _st_vec(ref, rows, mask, vec, like, off=0):
+    for i, x in enumerate(vec):
+        _st(ref, rows, mask, x, like, off + i)
+
+
+def _st_mat(ref, rows, mask, mat, like, off=0):
     for i in range(4):
-        finite = finite & jnp.isfinite(eta_msg[i])
         for j in range(4):
-            finite = finite & jnp.isfinite(lam_msg[i][j])
-
-    scale_aa = _mat_absmax(laa)
-    msg_scale = _mat_absmax(lam_msg)
-    sane = msg_scale <= 4.0 * scale_aa + 1.0
-    negligible = msg_scale <= rtol * scale_aa
-    valid = (abs(det) > 1e-6) & finite & sane & ~negligible
-
-    ok = valid.astype(eta_msg[0].dtype)
-    eta_msg = [e * ok for e in eta_msg]
-    lam_msg = [[l * ok for l in row] for row in lam_msg]
-    return eta_msg, lam_msg, valid
+            _st(ref, rows, mask, mat[i][j], like, off + 4 * i + j)
 
 
-def _dyn_message(front, mid, cav_eta, cav_lam, tail):
-    """One cancellation-free dynamic-factor message on planes:
-    S = front @ inv(mid + cav_lam); lam = S @ cav_lam @ tail; eta = S @ cav_eta
-    (see factors.dynamic_factor_messages). Symmetrised, non-finite zeroed."""
-    t, _ = _inv4_rowscaled(_madd(mid, cav_lam))
-    s = _matmat(front, t)
-    lam = _matmat(s, _matmat(cav_lam, tail))
-    eta = _matvec(s, cav_eta)
-    lam = [
-        [0.5 * (lam[i][j] + lam[j][i]) for j in range(4)]
-        for i in range(4)
-    ]
-    finite = jnp.isfinite(eta[0])
-    for i in range(4):
-        finite = finite & jnp.isfinite(eta[i])
-        for j in range(4):
-            finite = finite & jnp.isfinite(lam[i][j])
-    ok = finite.astype(eta[0].dtype)
-    return [e * ok for e in eta], [[l * ok for l in row] for row in lam]
-
-
-def _shift_pad_front(x, pad_row):
-    """[V-1, R] -> [V, R] by inserting a zero row at the top (align to vars
-    1..V-1)."""
-    return jnp.concatenate([pad_row, x], axis=0)
-
-
-def _shift_pad_back(x, pad_row):
-    return jnp.concatenate([x, pad_row], axis=0)
+def _pairs(n_pairs: int, V: int):
+    """This program's flat (robot, variable) pair indices and their parts."""
+    p = pl.program_id(0) * BLOCK + lax.iota(jnp.int32, BLOCK)
+    ok = p < n_pairs
+    p = jnp.where(ok, p, 0)
+    V = jnp.int32(V)
+    return p, ok, lax.div(p, V), lax.rem(p, V)
 
 
 # --------------------------------------------------------------------------
-# kernel parameters
+# factor kernel
 # --------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class SlotParams:
-    """Static parameters of the fused slot (hashable, closed over)."""
+def _dynamic_messages(cav_a_eta, cav_a_lam, cav_b_eta, cav_b_lam, dt, sigma):
+    """factors.dynamic_factor_messages for one edge: (m0, m1) with m0 to
+    var e (cavity on e+1) and m1 to var e+1 (cavity on e)."""
+    inv_s2 = 1.0 / (sigma * sigma)
+    q11 = (12.0 * inv_s2) / (dt * dt * dt)
+    q12 = (-6.0 * inv_s2) / (dt * dt)
+    q22 = (4.0 * inv_s2) / dt
 
-    n_vars: int
-    max_waypoints: int
-    sigma_dynamics: float
-    sigma_obstacle: float
-    sigma_tracking: float
-    obstacle_delta: float
-    switch_padding: float
-    attraction_distance: float
-    dynamic_enabled: bool = True
-    obstacle_enabled: bool = True
-    tracking_enabled: bool = True
-    rtol: float = 1e-4  # cancellation floor (f32)
+    def expand(b):  # 2x2 scalar blocks -> 4x4 (kron with I2)
+        m = [[0.0] * 4 for _ in range(4)]
+        for bi in range(2):
+            for bj in range(2):
+                for c in range(2):
+                    m[2 * bi + c][2 * bj + c] = b[bi][bj]
+        return m
 
+    qinv = expand([[q11, q12], [q12, q22]])
+    phi = expand([[1.0, dt], [0.0, 1.0]])
+    phi_inv = expand([[1.0, -dt], [0.0, 1.0]])
+    qinv_phi = _mm(qinv, phi)
+    m_aa = _mm(_tr(phi), qinv_phi)
 
-# input order for the kernel (hot-layout arrays, R last):
-_IN_FIELDS = (
-    "gate",          # [1, R] f32: active & not_idle
-    "tgate",         # [1, R] f32: gate & tracking iteration threshold
-    "belief_eta",    # [4, V, R]
-    "belief_lam",    # [4, 4, V, R]
-    "belief_mean",   # [4, V, R]
-    "prior_mean",    # [4, V, R]
-    "prior_sigma",   # [V, R]
-    "delta_t",       # [V-1, R]
-    "dyn_v2f_eta",   # [2, 4, V-1, R]
-    "dyn_v2f_lam",   # [2, 4, 4, V-1, R]
-    "dyn_v2f_mu",    # [2, 4, V-1, R]
-    "dyn_f2v_eta",   # [2, 4, V-1, R]
-    "dyn_f2v_lam",   # [2, 4, 4, V-1, R]
-    "obs_h0",        # [V-2, R]
-    "obs_hx",        # [V-2, R]
-    "obs_hy",        # [V-2, R]
-    "obs_v2f_mu",    # [4, V-2, R]
-    "obs_f2v_eta",   # [4, V-2, R]
-    "obs_f2v_lam",   # [4, 4, V-2, R]
-    "trk_v2f_mu",    # [4, V-2, R]
-    "trk_f2v_eta",   # [4, V-2, R]
-    "trk_f2v_lam",   # [4, 4, V-2, R]
-    "trk_record",    # [V-2, R] i32
-    "trk_timeout",   # [V-2, R] i32
-    "trk_last_pos",  # [2, V-2, R]
-    "trk_last_val",  # [V-2, R]
-    "path_x",        # [W, R]
-    "path_y",        # [W, R]
-    "path_len",      # [1, R] i32
-    "ext_sum_eta",   # [4, V, R]  — sum over K of delivered external messages
-    "ext_sum_lam",   # [4, 4, V, R]
-)
+    t_b, _ = _inv4_rowscaled(_madd(m_aa, cav_a_lam))
+    s_b = _mm(qinv_phi, t_b)
+    m1_lam = _mm(s_b, _mm(cav_a_lam, phi_inv))
+    m1_eta = _mv(s_b, cav_a_eta)
 
-_OUT_FIELDS = (
-    "belief_eta",
-    "belief_lam",
-    "belief_mean",
-    "snap_eta",
-    "snap_lam",
-    "snap_mu",
-    "dyn_v2f_eta",
-    "dyn_v2f_lam",
-    "dyn_v2f_mu",
-    "dyn_f2v_eta",
-    "dyn_f2v_lam",
-    "obs_v2f_mu",
-    "obs_f2v_eta",
-    "obs_f2v_lam",
-    "trk_v2f_mu",
-    "trk_f2v_eta",
-    "trk_f2v_lam",
-    "trk_record",
-    "trk_timeout",
-    "trk_last_pos",
-    "trk_last_val",
-)
+    t_a, _ = _inv4_rowscaled(_madd(qinv, cav_b_lam))
+    s_a = _mm(_tr(qinv_phi), t_a)
+    m0_lam = _mm(s_a, _mm(cav_b_lam, phi))
+    m0_eta = _mv(s_a, cav_b_eta)
+
+    def clean(eta, lam):
+        lam = [[0.5 * (lam[i][j] + lam[j][i]) for j in range(4)]
+               for i in range(4)]
+        fin = lambda x: jnp.where(jnp.isfinite(x), x, 0.0)
+        return [fin(x) for x in eta], [[fin(x) for x in row] for row in lam]
+
+    return clean(m0_eta, m0_lam), clean(m1_eta, m1_lam)
 
 
-def _slot_kernel(p: SlotParams, *refs):
-    ins = dict(zip(_IN_FIELDS, refs[: len(_IN_FIELDS)]))
-    outs = dict(zip(_OUT_FIELDS, refs[len(_IN_FIELDS) :]))
-    V = p.n_vars
+def _unary_messages(jx, jy, mu, h0, sigma):
+    """Unary factor with Jacobian (jx, jy, 0, 0): the potential itself."""
+    lam_m = 1.0 / (sigma * sigma)
+    J = [jx, jy, 0.0, 0.0]
+    jx0 = jx * mu[0] + jy * mu[1]
+    scale = lam_m * (jx0 - h0)
+    eta = [_mul(J[i], scale) for i in range(4)]
+    lam = [[_mul(_mul(lam_m, J[i]), J[j]) for j in range(4)] for i in range(4)]
+    return eta, lam
+
+
+def _norm2(x, y):
+    return jnp.sqrt(x * x + y * y)
+
+
+def _factor_kernel(cfg, names, *refs):
+    n = len(names)
+    ins = dict(zip(names, refs[:n]))
+    outs = dict(zip(cfg["outputs"], refs[n:]))
+    R, V = cfg["R"], cfg["V"]
     V1, V2 = V - 1, V - 2
-    f = jnp.float32
+    p, ok, r, v = _pairs(R * V, V)
+    g = _ld(ins["gate"], r, ok) != 0
+    like = jnp.zeros((BLOCK,), ins["t0"].dtype)
 
-    g1 = ins["gate"][:]            # [1, R] — broadcasts over V rows
-    tg = ins["tgate"][:]           # [1, R]
-
-    # ---------------- factor pass ----------------
-
-    # dynamic factors (factors.dynamic_factor_messages)
-    dyn_f2v_eta_new = [None, None]
-    dyn_f2v_lam_new = [None, None]
-    if p.dynamic_enabled:
-        dt = ins["delta_t"][:]  # [V1, R]
-        inv_s2 = 1.0 / (p.sigma_dynamics * p.sigma_dynamics)
-        q11 = (12.0 * inv_s2) / (dt * dt * dt)
-        q12 = (-6.0 * inv_s2) / (dt * dt)
-        q22 = (4.0 * inv_s2) / dt
-        zero = jnp.zeros_like(dt)
-
-        def qblk(s, i, j):
-            return s if i == j else zero
-
-        # Cancellation-free form (see factors.dynamic_factor_messages):
-        # with x_b = Phi x_a + w, Phi = [[I, dt I], [0, I]], the Schur
-        # marginal rearranges exactly to products with no subtraction:
-        #   msg to b:  S_b = Qinv Phi (Phi^T Qinv Phi + C)^-1,
-        #              lam = S_b C Phi^-1, eta = S_b eta_c
-        #   msg to a:  S_a = Phi^T Qinv (Qinv + D)^-1,
-        #              lam = S_a D Phi,   eta = S_a eta_d
-        # All structured matrices are 2x2-scalar-blocks ⊗ I2.
-        s1 = dt * q11 + q12
-        s2 = dt * q12 + q22
-        # Phi^T Qinv Phi (the aa potential block), Qinv, Qinv Phi:
-        aa_b = [[q11, q11 * dt + q12], [s1, s1 * dt + s2]]
-        bb_b = [[q11, q12], [q12, q22]]
-        qphi_b = [[q11, q11 * dt + q12], [q12, q12 * dt + q22]]
-        one = jnp.ones_like(dt)
-        phi_b = [[one, dt], [zero, one]]
-        phi_inv_b = [[one, -dt], [zero, one]]
-
-        def expand(b):  # 2x2 scalar blocks -> 4x4 planes (⊗ I2)
-            m = [[zero for _ in range(4)] for _ in range(4)]
-            for bi in range(2):
-                for bj in range(2):
-                    for c in range(2):
-                        m[2 * bi + c][2 * bj + c] = b[bi][bj]
-            return m
-
-        laa = expand(aa_b)
-        qinv = expand(bb_b)
-        qinv_phi = expand(qphi_b)
-        phi_qinv = [[qinv_phi[j][i] for j in range(4)] for i in range(4)]
-        phi = expand(phi_b)
-        phi_inv = expand(phi_inv_b)
-
-        v2f_eta0 = _vec(ins["dyn_v2f_eta"][0])
-        v2f_eta1 = _vec(ins["dyn_v2f_eta"][1])
-        v2f_lam0 = _mat(ins["dyn_v2f_lam"][0])
-        v2f_lam1 = _mat(ins["dyn_v2f_lam"][1])
-
-        m0_eta, m0_lam = _dyn_message(phi_qinv, qinv, v2f_eta1, v2f_lam1, phi)
-        m1_eta, m1_lam = _dyn_message(qinv_phi, laa, v2f_eta0, v2f_lam0, phi_inv)
-        gk = g1  # [1, R] -> broadcasts over V1 rows
-        old_eta = ins["dyn_f2v_eta"]
-        old_lam = ins["dyn_f2v_lam"]
-        dyn_f2v_eta_new[0] = [
-            jnp.where(gk > 0, m0_eta[i], old_eta[0, i]) for i in range(4)
-        ]
-        dyn_f2v_eta_new[1] = [
-            jnp.where(gk > 0, m1_eta[i], old_eta[1, i]) for i in range(4)
-        ]
-        dyn_f2v_lam_new[0] = [
-            [jnp.where(gk > 0, m0_lam[i][j], old_lam[0, i, j]) for j in range(4)]
-            for i in range(4)
-        ]
-        dyn_f2v_lam_new[1] = [
-            [jnp.where(gk > 0, m1_lam[i][j], old_lam[1, i, j]) for j in range(4)]
-            for i in range(4)
-        ]
-    else:
-        dyn_f2v_eta_new[0] = [ins["dyn_f2v_eta"][0, i] for i in range(4)]
-        dyn_f2v_eta_new[1] = [ins["dyn_f2v_eta"][1, i] for i in range(4)]
-        dyn_f2v_lam_new[0] = _mat(ins["dyn_f2v_lam"][0])
-        dyn_f2v_lam_new[1] = _mat(ins["dyn_f2v_lam"][1])
-
-    # obstacle factors (factors.obstacle_messages_from_taps)
-    if p.obstacle_enabled and V2 > 0:
-        h0 = ins["obs_h0"][:]
-        jx = (ins["obs_hx"][:] - h0) / p.obstacle_delta
-        jy = (ins["obs_hy"][:] - h0) / p.obstacle_delta
-        mu_o = _vec(ins["obs_v2f_mu"])
-        lam_m = 1.0 / (p.sigma_obstacle * p.sigma_obstacle)
-        jx0 = jx * mu_o[0] + jy * mu_o[1]
-        scale = lam_m * (jx0 - h0)
-        Jo = [jx, jy, jnp.zeros_like(jx), jnp.zeros_like(jx)]
-        obs_eta_new = [
-            jnp.where(g1 > 0, Jo[i] * scale, ins["obs_f2v_eta"][i]) for i in range(4)
-        ]
-        obs_lam_new = [
-            [
-                jnp.where(g1 > 0, lam_m * Jo[i] * Jo[j], ins["obs_f2v_lam"][i, j])
-                for j in range(4)
-            ]
-            for i in range(4)
-        ]
-    else:
-        obs_eta_new = _vec(ins["obs_f2v_eta"])
-        obs_lam_new = _mat(ins["obs_f2v_lam"])
-
-    # tracking factors (factors.tracking_factor_messages)
-    if p.tracking_enabled and V2 > 0:
-        rec_in = ins["trk_record"][:]          # [V2, R] i32
-        timeout = ins["trk_timeout"][:]
-        plen = ins["path_len"][:]              # [1, R] -> broadcast
-        mu_t = _vec(ins["trk_v2f_mu"])
-        x_px, x_py = mu_t[0], mu_t[1]
-        vx, vy = mu_t[2], mu_t[3]
-
-        max_record = jnp.maximum(plen - 2, 0)
-        rec = jnp.clip(rec_in, 0, max_record)
-
-        # one-hot gather of segment endpoints over the path planes
-        zero2 = jnp.zeros_like(x_px)
-        cur_sx = zero2
-        cur_sy = zero2
-        cur_ex = zero2
-        cur_ey = zero2
-        prev_sx = zero2
-        prev_sy = zero2
-        rec_prev = jnp.maximum(rec - 1, 0)
-        for w in range(p.max_waypoints):
-            pxw = ins["path_x"][w : w + 1, :]  # [1, R]
-            pyw = ins["path_y"][w : w + 1, :]
-            m_s = (rec == w).astype(f)
-            m_e = (rec + 1 == w).astype(f)
-            m_p = (rec_prev == w).astype(f)
-            cur_sx += m_s * pxw
-            cur_sy += m_s * pyw
-            cur_ex += m_e * pxw
-            cur_ey += m_e * pyw
-            prev_sx += m_p * pxw
-            prev_sy += m_p * pyw
-
-        line_x = cur_ex - cur_sx
-        line_y = cur_ey - cur_sy
-        line_dot = line_x * line_x + line_y * line_y
-        safe_dot = jnp.where(line_dot > 0, line_dot, 1.0)
-        t_cur = ((x_px - cur_sx) * line_x + (x_py - cur_sy) * line_y) / safe_dot
-        proj_cx = cur_sx + t_cur * line_x
-        proj_cy = cur_sy + t_cur * line_y
-
-        d_pad = p.switch_padding
-        d_lo = d_pad * 0.01
-
-        cur_to_end = jnp.sqrt(
-            (cur_ex - proj_cx) ** 2 + (cur_ey - proj_cy) ** 2
+    if cfg["dynamic"]:
+        has = ok & (v < V1)
+        e = r * V1 + jnp.minimum(v, V1 - 1)
+        dt = _ld(ins["t0"], r, ok) * _ld(ins["gaps"], jnp.minimum(v, V1 - 1), ok)
+        dt = jnp.where(has, dt, 1.0)
+        v2f_eta, v2f_lam = ins["dyn_v2f_eta"], ins["dyn_v2f_lam"]
+        (m0_eta, m0_lam), (m1_eta, m1_lam) = _dynamic_messages(
+            _ld_vec(v2f_eta, e, has, 0), _ld_mat(v2f_lam, e, has, 0),
+            _ld_vec(v2f_eta, e, has, 4), _ld_mat(v2f_lam, e, has, 16),
+            dt, cfg["sigma_dynamics"],
         )
+        m = has & g
+        _st_vec(outs["dyn_f2v_eta"], e, m, m0_eta, like, 0)
+        _st_vec(outs["dyn_f2v_eta"], e, m, m1_eta, like, 4)
+        _st_mat(outs["dyn_f2v_lam"], e, m, m0_lam, like, 0)
+        _st_mat(outs["dyn_f2v_lam"], e, m, m1_lam, like, 16)
 
-        pline_x = cur_sx - prev_sx
-        pline_y = cur_sy - prev_sy
-        pline_dot = pline_x * pline_x + pline_y * pline_y
-        psafe = jnp.where(pline_dot > 0, pline_dot, 1.0)
-        t_prev = ((x_px - prev_sx) * pline_x + (x_py - prev_sy) * pline_y) / psafe
-        proj_px = prev_sx + t_prev * pline_x
-        proj_py = prev_sy + t_prev * pline_y
+    if not (cfg["obstacle"] or cfg["tracking"]):
+        return
+    inner = ok & (v >= 1) & (v <= V2)
+    i = r * V2 + jnp.clip(v - 1, 0, V2 - 1)
 
-        cur_to_pe = jnp.sqrt((cur_sx - proj_cx) ** 2 + (cur_sy - proj_cy) ** 2)
-        prev_to_pe = jnp.sqrt((cur_sx - proj_px) ** 2 + (cur_sy - proj_py) ** 2)
+    if cfg["obstacle"]:
+        mu = _ld_vec(ins["obs_v2f_mu"], i, inner)
+        H, W = cfg["sdf_shape"]
+        ww, wh = cfg["world"]
+        delta = obstacle_delta((H, W), (ww, wh))
 
-        use_prev = (
-            (rec > 0)
-            & (cur_to_pe < d_pad)
-            & (cur_to_pe > d_lo)
-            & (prev_to_pe < d_pad)
+        def measure(px, py):  # factors.obstacle_taps
+            xf = (px + ww / 2.0) * (W / ww)
+            yf = (-py + wh / 2.0) * (H / wh)
+            xi = jnp.clip(jnp.floor(jnp.maximum(xf, 0.0)), 0, W - 1).astype(jnp.int32)
+            yi = jnp.clip(jnp.floor(jnp.maximum(yf, 0.0)), 0, H - 1).astype(jnp.int32)
+            inside = (xf < W) & (yf < H)
+            val = 1.0 - _ld(ins["sdf"], yi * W + xi, inner)
+            return jnp.where(inside, val, 0.0).astype(like.dtype)
+
+        h0 = measure(mu[0], mu[1])
+        hx = measure(mu[0] + delta, mu[1])
+        hy = measure(mu[0], mu[1] + delta)
+        eta, lam = _unary_messages(
+            (hx - h0) / delta, (hy - h0) / delta, mu, h0, cfg["sigma_obstacle"]
         )
+        m = inner & g
+        _st_vec(outs["obs_f2v_eta"], i, m, eta, like)
+        _st_mat(outs["obs_f2v_lam"], i, m, lam, like)
 
-        new_record = jnp.where(
-            cur_to_end < d_pad, jnp.minimum(rec + 1, max_record), rec
-        )
+    if cfg["tracking"]:
+        _tracking(cfg, ins, outs, i, r, inner, like)
 
-        vel_norm = jnp.sqrt(vx * vx + vy * vy)
-        line_norm = jnp.sqrt(line_dot)
-        inv_ln = jnp.where(line_norm > 0, 1.0 / jnp.where(line_norm > 0, line_norm, 1.0), 0.0)
-        mp_sx = proj_cx + line_x * inv_ln * vel_norm / 5.0
-        mp_sy = proj_cy + line_y * inv_ln * vel_norm / 5.0
-        mp_bx = x_px + (proj_cx - x_px) + (proj_px - x_px)
-        mp_by = x_py + (proj_cy - x_py) + (proj_py - x_py)
-        upf = use_prev.astype(f)
-        mp_x = upf * mp_bx + (1.0 - upf) * mp_sx
-        mp_y = upf * mp_by + (1.0 - upf) * mp_sy
 
-        dx = mp_x - x_px
-        dy = mp_y - x_py
-        d_mp = jnp.sqrt(dx * dx + dy * dy)
-        h0t = jnp.minimum(d_mp / p.attraction_distance, 1.0)
+def _tracking(cfg, ins, outs, i, r, inner, like):
+    """factors.tracking_factor_messages for one interior variable, gated
+    like tick.internal_factor_pass."""
+    Wmax = cfg["max_waypoints"]
+    tg = (_ld(ins["tgate"], r, inner) != 0) & inner
+    mu = _ld_vec(ins["trk_v2f_mu"], i, inner)
+    x, y = mu[0], mu[1]
+    record = _ld(ins["trk_record"], i, inner)
+    timeout = _ld(ins["trk_timeout"], i, inner)
+    plen = _ld(ins["trk_path_len"], r, inner)
+    max_record = jnp.maximum(plen - 2, 0)
+    rec = jnp.clip(record, 0, max_record)
 
-        safe_h0 = jnp.where(h0t != 0, h0t, 1.0)
-        gtx = (x_px - mp_x) / safe_h0
-        gty = (x_py - mp_y) / safe_h0
-        Jt = [gtx, gty, jnp.zeros_like(gtx), jnp.zeros_like(gtx)]
+    def pt(idx):
+        row = r * Wmax + jnp.clip(idx, 0, Wmax - 1)
+        return (_ld(ins["trk_path"], row, inner, 0),
+                _ld(ins["trk_path"], row, inner, 1))
 
-        lam_mt = 1.0 / (p.sigma_tracking * p.sigma_tracking)
-        jx0t = gtx * x_px + gty * x_py
-        scale_t = lam_mt * (jx0t - h0t)
+    sx, sy = pt(rec)
+    ex, ey = pt(rec + 1)
+    lx, ly = ex - sx, ey - sy
+    line_dot = lx * lx + ly * ly
+    safe_dot = jnp.where(line_dot > 0, line_dot, 1.0)
+    t_cur = jnp.clip(((x - sx) * lx + (y - sy) * ly) / safe_dot, 0.0, 1.0)
+    pcx, pcy = sx + t_cur * lx, sy + t_cur * ly
 
-        timed_out = timeout > 0
-        new_timeout = jnp.where(
-            timed_out, timeout - 1, jnp.where(timeout == 0, -1, timeout)
-        )
-        path_done = (plen < 2) | (rec >= plen - 1)
-        skipped = timed_out | path_done | (h0t == 0)
-        keepf = (~skipped).astype(f)
+    d_pad = cfg["switch_padding"]
+    d_lo = d_pad * 0.01
+    cur_to_end = _norm2(ex - pcx, ey - pcy)
 
-        tgb = tg > 0  # [1, R]
-        trk_eta_new = [
-            jnp.where(tgb, Jt[i] * scale_t * keepf, ins["trk_f2v_eta"][i])
-            for i in range(4)
-        ]
-        trk_lam_new = [
-            [
-                jnp.where(tgb, lam_mt * Jt[i] * Jt[j] * keepf, ins["trk_f2v_lam"][i, j])
-                for j in range(4)
-            ]
-            for i in range(4)
-        ]
-        rec_out = jnp.where(tgb & ~skipped, new_record, rec_in)
-        timeout_out = jnp.where(tgb, new_timeout, timeout)
-        measured = tgb & ~skipped
-        last_px = jnp.where(measured, mp_x, ins["trk_last_pos"][0])
-        last_py = jnp.where(measured, mp_y, ins["trk_last_pos"][1])
-        last_val = jnp.where(measured, h0t, ins["trk_last_val"][:])
-    else:
-        trk_eta_new = _vec(ins["trk_f2v_eta"])
-        trk_lam_new = _mat(ins["trk_f2v_lam"])
-        rec_out = ins["trk_record"][:]
-        timeout_out = ins["trk_timeout"][:]
-        last_px = ins["trk_last_pos"][0]
-        last_py = ins["trk_last_pos"][1]
-        last_val = ins["trk_last_val"][:]
+    psx, psy = pt(jnp.maximum(rec - 1, 0))
+    plx, ply = sx - psx, sy - psy
+    pline_dot = plx * plx + ply * ply
+    psafe = jnp.where(pline_dot > 0, pline_dot, 1.0)
+    t_prev = jnp.clip(((x - psx) * plx + (y - psy) * ply) / psafe, 0.0, 1.0)
+    ppx, ppy = psx + t_prev * plx, psy + t_prev * ply
 
-    # ---------------- variable pass ----------------
-
-    prior_sigma = ins["prior_sigma"][:]  # [V, R]
-    prior_mean = _vec(ins["prior_mean"])
-    vzero = jnp.zeros((1, g1.shape[-1]), f)
-
-    eta = [prior_sigma * prior_mean[i] + ins["ext_sum_eta"][i] for i in range(4)]
-    lam = [
-        [
-            (prior_sigma if i == j else 0.0) + ins["ext_sum_lam"][i, j]
-            for j in range(4)
-        ]
-        for i in range(4)
-    ]
-
-    for i in range(4):
-        eta[i] = (
-            eta[i]
-            + _shift_pad_back(dyn_f2v_eta_new[0][i], vzero)
-            + _shift_pad_front(dyn_f2v_eta_new[1][i], vzero)
-        )
-        for j in range(4):
-            lam[i][j] = (
-                lam[i][j]
-                + _shift_pad_back(dyn_f2v_lam_new[0][i][j], vzero)
-                + _shift_pad_front(dyn_f2v_lam_new[1][i][j], vzero)
-            )
-
-    if V2 > 0:
-        for i in range(4):
-            interior = obs_eta_new[i] + trk_eta_new[i]
-            eta[i] = eta[i] + jnp.concatenate([vzero, interior, vzero], axis=0)
-            for j in range(4):
-                interior_l = obs_lam_new[i][j] + trk_lam_new[i][j]
-                lam[i][j] = lam[i][j] + jnp.concatenate(
-                    [vzero, interior_l, vzero], axis=0
-                )
-
-    # update_beliefs (variables.py): precision check + guarded inverse
-    pnz = lam[0][0] > 1e-6
-    for i in range(4):
-        for j in range(4):
-            if i or j:
-                pnz = pnz | (lam[i][j] > 1e-6)
-
-    cov, det = _inv4_rowscaled(lam)
-    # residual check ||lam @ cov - I||
-    resid = jnp.zeros_like(lam[0][0])
-    finite = jnp.ones_like(pnz)
-    for i in range(4):
-        for j in range(4):
-            r_ij = sum(lam[i][k] * cov[k][j] for k in range(4)) - (
-                1.0 if i == j else 0.0
-            )
-            resid = jnp.maximum(resid, abs(r_ij))
-            finite = finite & jnp.isfinite(cov[i][j])
-    valid = pnz & (det != 0.0) & finite & (resid < 1e-4)
-
-    old_mean = _vec(ins["belief_mean"])
-    mean = [
-        jnp.where(valid, sum(cov[i][k] * eta[k] for k in range(4)), old_mean[i])
-        for i in range(4)
-    ]
-
-    gb = g1 > 0
-    belief_eta = [jnp.where(gb, eta[i], ins["belief_eta"][i]) for i in range(4)]
-    belief_lam = [
-        [jnp.where(gb, lam[i][j], ins["belief_lam"][i, j]) for j in range(4)]
-        for i in range(4)
-    ]
-    belief_mean = [jnp.where(gb, mean[i], old_mean[i]) for i in range(4)]
-
-    outs["belief_eta"][:] = _stack_vec(belief_eta)
-    outs["belief_lam"][:] = _stack_mat(belief_lam)
-    outs["belief_mean"][:] = _stack_vec(belief_mean)
-    outs["snap_eta"][:] = _stack_vec(belief_eta)
-    outs["snap_lam"][:] = _stack_mat(belief_lam)
-    outs["snap_mu"][:] = _stack_vec(belief_mean)
-
-    # responses: dyn edge e slot0 <- var e, slot1 <- var e+1
-    if p.dynamic_enabled:
-        v2f_eta_out = jnp.stack(
-            [
-                jnp.stack(
-                    [belief_eta[i][:V1] - dyn_f2v_eta_new[0][i] for i in range(4)]
-                ),
-                jnp.stack(
-                    [belief_eta[i][1:] - dyn_f2v_eta_new[1][i] for i in range(4)]
-                ),
-            ]
-        )
-        v2f_lam_out = jnp.stack(
-            [
-                _stack_mat(
-                    [
-                        [
-                            belief_lam[i][j][:V1] - dyn_f2v_lam_new[0][i][j]
-                            for j in range(4)
-                        ]
-                        for i in range(4)
-                    ]
-                ),
-                _stack_mat(
-                    [
-                        [
-                            belief_lam[i][j][1:] - dyn_f2v_lam_new[1][i][j]
-                            for j in range(4)
-                        ]
-                        for i in range(4)
-                    ]
-                ),
-            ]
-        )
-        v2f_mu_out = jnp.stack(
-            [
-                jnp.stack([belief_mean[i][:V1] for i in range(4)]),
-                jnp.stack([belief_mean[i][1:] for i in range(4)]),
-            ]
-        )
-        gkb = gb  # [1, R]
-        outs["dyn_v2f_eta"][:] = jnp.where(gkb, v2f_eta_out, ins["dyn_v2f_eta"][:])
-        outs["dyn_v2f_lam"][:] = jnp.where(gkb, v2f_lam_out, ins["dyn_v2f_lam"][:])
-        outs["dyn_v2f_mu"][:] = jnp.where(gkb, v2f_mu_out, ins["dyn_v2f_mu"][:])
-    else:
-        outs["dyn_v2f_eta"][:] = ins["dyn_v2f_eta"][:]
-        outs["dyn_v2f_lam"][:] = ins["dyn_v2f_lam"][:]
-        outs["dyn_v2f_mu"][:] = ins["dyn_v2f_mu"][:]
-
-    outs["dyn_f2v_eta"][:] = jnp.stack(
-        [_stack_vec(dyn_f2v_eta_new[0]), _stack_vec(dyn_f2v_eta_new[1])]
+    cur_proj_to_prev_end = _norm2(sx - pcx, sy - pcy)
+    prev_proj_to_prev_end = _norm2(sx - ppx, sy - ppy)
+    win_prev = jnp.minimum(d_pad, 0.5 * jnp.sqrt(pline_dot))
+    win_cur = jnp.minimum(d_pad, 0.5 * jnp.sqrt(line_dot))
+    use_prev = (
+        (rec > 0)
+        & (cur_proj_to_prev_end < win_cur)
+        & (cur_proj_to_prev_end > d_lo)
+        & (prev_proj_to_prev_end > d_lo)
+        & (prev_proj_to_prev_end < win_prev)
     )
-    outs["dyn_f2v_lam"][:] = jnp.stack(
-        [_stack_mat(dyn_f2v_lam_new[0]), _stack_mat(dyn_f2v_lam_new[1])]
+    new_record = jnp.where(
+        cur_to_end < d_pad, jnp.minimum(rec + 1, max_record), rec
     )
 
-    if V2 > 0:
-        interior_mean = jnp.stack([belief_mean[i][1 : V - 1] for i in range(4)])
-        if p.obstacle_enabled:
-            outs["obs_v2f_mu"][:] = jnp.where(gb, interior_mean, ins["obs_v2f_mu"][:])
-        else:
-            outs["obs_v2f_mu"][:] = ins["obs_v2f_mu"][:]
-        if p.tracking_enabled:
-            outs["trk_v2f_mu"][:] = jnp.where(gb, interior_mean, ins["trk_v2f_mu"][:])
-        else:
-            outs["trk_v2f_mu"][:] = ins["trk_v2f_mu"][:]
-    else:
-        outs["obs_v2f_mu"][:] = ins["obs_v2f_mu"][:]
-        outs["trk_v2f_mu"][:] = ins["trk_v2f_mu"][:]
+    vel_norm = _norm2(mu[2], mu[3])
+    line_norm = _norm2(lx, ly)
+    safe_ln = jnp.where(line_norm > 0, line_norm, 1.0)
+    ux = jnp.where(line_norm > 0, lx / safe_ln, 0.0)
+    uy = jnp.where(line_norm > 0, ly / safe_ln, 0.0)
+    mpx = jnp.where(use_prev, x + (pcx - x) + (ppx - x), pcx + ux * vel_norm / 5.0)
+    mpy = jnp.where(use_prev, y + (pcy - y) + (ppy - y), pcy + uy * vel_norm / 5.0)
 
-    outs["obs_f2v_eta"][:] = _stack_vec(obs_eta_new)
-    outs["obs_f2v_lam"][:] = _stack_mat(obs_lam_new)
-    outs["trk_f2v_eta"][:] = _stack_vec(trk_eta_new)
-    outs["trk_f2v_lam"][:] = _stack_mat(trk_lam_new)
-    outs["trk_record"][:] = rec_out
-    outs["trk_timeout"][:] = timeout_out
-    outs["trk_last_pos"][:] = jnp.stack([last_px, last_py])
-    outs["trk_last_val"][:] = last_val
+    h0 = jnp.minimum(_norm2(mpx - x, mpy - y) / cfg["attraction_distance"], 1.0)
+    safe_h0 = jnp.where(h0 != 0, h0, 1.0)
+    eta, lam = _unary_messages(
+        (x - mpx) / safe_h0, (y - mpy) / safe_h0, mu, h0, cfg["sigma_tracking"]
+    )
 
+    timed_out = timeout > 0
+    new_timeout = jnp.where(
+        timed_out, timeout - 1, jnp.where(timeout == 0, -1, timeout)
+    )
+    path_done = (plen < 2) | (rec >= plen - 1)
+    skipped = timed_out | path_done | (h0 == 0)
+    keep = ~skipped
+    eta = [jnp.where(keep, x_, 0.0) if not isinstance(x_, float) else x_
+           for x_ in eta]
+    lam = [[jnp.where(keep, x_, 0.0) if not isinstance(x_, float) else x_
+            for x_ in row] for row in lam]
 
-_VAR_IN_FIELDS = (
-    "gate",          # [1, R] f32
-    "belief_eta",    # [4, V, R] (old planes — kept where ~gate)
-    "belief_lam",    # [4, 4, V, R]
-    "belief_mean",   # [4, V, R] (old means — fallback where invalid)
-    "prior_mean",    # [4, V, R]
-    "prior_sigma",   # [V, R]
-    "dyn_f2v_eta",   # [2, 4, V-1, R]
-    "dyn_f2v_lam",   # [2, 4, 4, V-1, R]
-    "obs_f2v_eta",   # [4, V-2, R]
-    "obs_f2v_lam",   # [4, 4, V-2, R]
-    "trk_f2v_eta",   # [4, V-2, R]
-    "trk_f2v_lam",   # [4, 4, V-2, R]
-    "ext_sum_eta",   # [4, V, R]
-    "ext_sum_lam",   # [4, 4, V, R]
-)
-
-_VAR_OUT_FIELDS = ("belief_eta", "belief_lam", "belief_mean")
+    _st_vec(outs["trk_f2v_eta"], i, tg, eta, like)
+    _st_mat(outs["trk_f2v_lam"], i, tg, lam, like)
+    _st(outs["trk_record"], i, tg, jnp.where(keep, new_record, record), like)
+    _st(outs["trk_timeout"], i, tg, new_timeout, like)
+    measured = tg & keep
+    _st(outs["trk_last_pos"], i, measured, mpx, like, 0)
+    _st(outs["trk_last_pos"], i, measured, mpy, like, 1)
+    _st(outs["trk_last_val"], i, measured, h0, like)
 
 
-def _variable_kernel(p: SlotParams, *refs):
-    """Variable pass only: belief = prior + all inbox messages, guarded 4x4
-    inverse, mean update. The body of the external variable iteration
-    (factorgraph.rs:794-826) — no responses, no snapshots (the external
-    response reduces to the belief mean, delivered by the caller)."""
-    ins = dict(zip(_VAR_IN_FIELDS, refs[: len(_VAR_IN_FIELDS)]))
-    outs = dict(zip(_VAR_OUT_FIELDS, refs[len(_VAR_IN_FIELDS) :]))
-    V = p.n_vars
+# --------------------------------------------------------------------------
+# belief kernel
+# --------------------------------------------------------------------------
+
+def _belief_kernel(cfg, names, *refs):
+    n = len(names)
+    ins = dict(zip(names, refs[:n]))
+    outs = dict(zip(cfg["outputs"], refs[n:]))
+    R, V = cfg["R"], cfg["V"]
     V1, V2 = V - 1, V - 2
-    f = jnp.float32
+    p, ok, r, v = _pairs(R * V, V)
+    g = (_ld(ins["gate"], r, ok) != 0) & ok
+    like = _ld(ins["prior_sigma"], p, ok)
 
-    g1 = ins["gate"][:]
-    prior_sigma = ins["prior_sigma"][:]
-    prior_mean = _vec(ins["prior_mean"])
-    vzero = jnp.zeros((1, g1.shape[-1]), f)
-
-    eta = [prior_sigma * prior_mean[i] + ins["ext_sum_eta"][i] for i in range(4)]
-    lam = [
-        [
-            (prior_sigma if i == j else 0.0) + ins["ext_sum_lam"][i, j]
-            for j in range(4)
-        ]
-        for i in range(4)
-    ]
-    for i in range(4):
-        eta[i] = (
-            eta[i]
-            + _shift_pad_back(ins["dyn_f2v_eta"][0, i], vzero)
-            + _shift_pad_front(ins["dyn_f2v_eta"][1, i], vzero)
-        )
-        for j in range(4):
-            lam[i][j] = (
-                lam[i][j]
-                + _shift_pad_back(ins["dyn_f2v_lam"][0, i, j], vzero)
-                + _shift_pad_front(ins["dyn_f2v_lam"][1, i, j], vzero)
-            )
+    # variables.sum_messages, in its order of additions
+    sig = like
+    prior = _ld_vec(ins["prior_mean"], p, ok)
+    eta = [sig * prior[k] for k in range(4)]
+    lam = [[sig if a == b else 0.0 for b in range(4)] for a in range(4)]
+    has0 = ok & (v < V1)
+    has1 = ok & (v >= 1)
+    e0 = r * V1 + jnp.minimum(v, V1 - 1)
+    e1 = r * V1 + jnp.maximum(v - 1, 0)
+    f0_eta = _ld_vec(ins["dyn_f2v_eta"], e0, has0, 0)
+    f1_eta = _ld_vec(ins["dyn_f2v_eta"], e1, has1, 4)
+    f0_lam = _ld_mat(ins["dyn_f2v_lam"], e0, has0, 0)
+    f1_lam = _ld_mat(ins["dyn_f2v_lam"], e1, has1, 16)
+    eta = [_add(_add(eta[k], f0_eta[k]), f1_eta[k]) for k in range(4)]
+    lam = _madd(_madd(lam, f0_lam), f1_lam)
+    inner = ok & (v >= 1) & (v <= V2)
+    i = r * V2 + jnp.clip(v - 1, 0, V2 - 1)
     if V2 > 0:
-        for i in range(4):
-            interior = ins["obs_f2v_eta"][i] + ins["trk_f2v_eta"][i]
-            eta[i] = eta[i] + jnp.concatenate([vzero, interior, vzero], axis=0)
-            for j in range(4):
-                interior_l = ins["obs_f2v_lam"][i, j] + ins["trk_f2v_lam"][i, j]
-                lam[i][j] = lam[i][j] + jnp.concatenate(
-                    [vzero, interior_l, vzero], axis=0
-                )
+        for kind in ("obs", "trk"):
+            eta = [_add(eta[k], x) for k, x in
+                   enumerate(_ld_vec(ins[f"{kind}_f2v_eta"], i, inner))]
+            lam = _madd(lam, _ld_mat(ins[f"{kind}_f2v_lam"], i, inner))
+    ext = _ld_vec(ins["ext_sum"], e1, has1, 0, 5)  # ex, ey, lxx, lxy, lyy
+    eta = [_add(eta[0], ext[0]), _add(eta[1], ext[1]), eta[2], eta[3]]
+    ext_lam = [[ext[2], ext[3], 0.0, 0.0], [ext[3], ext[4], 0.0, 0.0],
+               [0.0] * 4, [0.0] * 4]
+    lam = _madd(lam, ext_lam)
+    eta = [x if not isinstance(x, float) else jnp.full_like(like, x) for x in eta]
+    lam = [[x if not isinstance(x, float) else jnp.full_like(like, x)
+            for x in row] for row in lam]
 
-    pnz = lam[0][0] > 1e-6
-    for i in range(4):
-        for j in range(4):
-            if i or j:
-                pnz = pnz | (lam[i][j] > 1e-6)
+    # variables.update_beliefs + linalg.belief_covariance
+    pnz = functools.reduce(
+        jnp.logical_or, [lam[a][b] > 1e-6 for a in range(4) for b in range(4)]
+    )
     cov, det = _inv4_rowscaled(lam)
-    resid = jnp.zeros_like(lam[0][0])
-    finite = jnp.ones_like(pnz)
-    for i in range(4):
-        for j in range(4):
-            r_ij = sum(lam[i][k] * cov[k][j] for k in range(4)) - (
-                1.0 if i == j else 0.0
-            )
-            resid = jnp.maximum(resid, abs(r_ij))
-            finite = finite & jnp.isfinite(cov[i][j])
+    resid = jnp.zeros_like(like)
+    finite = jnp.isfinite(cov[0][0])
+    for a in range(4):
+        for b in range(4):
+            lc = _sum(lam[a][k] * cov[k][b] for k in range(4))
+            resid = jnp.maximum(resid, abs(lc - (1.0 if a == b else 0.0)))
+            finite = finite & jnp.isfinite(cov[a][b])
     valid = pnz & (det != 0.0) & finite & (resid < 1e-4)
+    old_mean = _ld_vec(ins["belief_mean"], p, ok)
+    mean = [jnp.where(valid, _sum(cov[a][k] * eta[k] for k in range(4)),
+                      old_mean[a]) for a in range(4)]
 
-    old_mean = _vec(ins["belief_mean"])
-    mean = [
-        jnp.where(valid, sum(cov[i][k] * eta[k] for k in range(4)), old_mean[i])
-        for i in range(4)
-    ]
-    gb = g1 > 0
-    outs["belief_eta"][:] = _stack_vec(
-        [jnp.where(gb, eta[i], ins["belief_eta"][i]) for i in range(4)]
-    )
-    outs["belief_lam"][:] = _stack_mat(
-        [
-            [jnp.where(gb, lam[i][j], ins["belief_lam"][i, j]) for j in range(4)]
-            for i in range(4)
-        ]
-    )
-    outs["belief_mean"][:] = _stack_vec(
-        [jnp.where(gb, mean[i], old_mean[i]) for i in range(4)]
-    )
+    _st_vec(outs["belief_eta"], p, g, eta, like)
+    _st_mat(outs["belief_lam"], p, g, lam, like)
+    _st_vec(outs["belief_mean"], p, g, mean, like)
+    if not cfg["responses"]:
+        return
+
+    # tick.internal_variable_pass: snapshots and internal-factor responses
+    _st_vec(outs["snap_eta"], p, g, eta, like)
+    _st_mat(outs["snap_lam"], p, g, lam, like)
+    _st_vec(outs["snap_mu"], p, g, mean, like)
+    if cfg["dynamic"]:
+        m0, m1 = g & has0, g & has1
+        sub = lambda a_, b_: [[a_[x][y] - b_[x][y] for y in range(4)]
+                              for x in range(4)]
+        _st_vec(outs["dyn_v2f_eta"], e0, m0,
+                [eta[k] - f0_eta[k] for k in range(4)], like, 0)
+        _st_vec(outs["dyn_v2f_eta"], e1, m1,
+                [eta[k] - f1_eta[k] for k in range(4)], like, 4)
+        _st_mat(outs["dyn_v2f_lam"], e0, m0, sub(lam, f0_lam), like, 0)
+        _st_mat(outs["dyn_v2f_lam"], e1, m1, sub(lam, f1_lam), like, 16)
+        _st_vec(outs["dyn_v2f_mu"], e0, m0, mean, like, 0)
+        _st_vec(outs["dyn_v2f_mu"], e1, m1, mean, like, 4)
+    for kind in ("obs", "trk"):
+        if cfg[{"obs": "obstacle", "trk": "tracking"}[kind]] and V2 > 0:
+            _st_vec(outs[f"{kind}_v2f_mu"], i, g & inner, mean, like)
 
 
-def variable_slot(
-    hot: dict, p: SlotParams, *, r_tile: int = 128, interpret: bool = False
-) -> dict:
-    """Run the variable-only pass (external GBP slot belief update). `hot`
-    maps _VAR_IN_FIELDS to hot-layout arrays. Returns dict of
-    _VAR_OUT_FIELDS (previous planes kept where ~gate)."""
-    R = hot["gate"].shape[-1]
-    assert R % r_tile == 0, (R, r_tile)
-    grid = (R // r_tile,)
+# --------------------------------------------------------------------------
+# agreement with the XLA passes
+# --------------------------------------------------------------------------
 
-    def spec(arr):
-        lead = arr.shape[:-1]
-        nlead = len(lead)
+# Largest |kernel - XLA| per field after one slot, relative to
+# max(max |XLA field|, 1): float32 roundoff of reordered sums, amplified by
+# the 4x4 inverses (messages), and once more by the mean solve (means).
+# Integer fields must match exactly.
+SLOT_TOLERANCE = {
+    **dict.fromkeys(
+        ("belief_eta", "belief_lam", "snap_eta", "snap_lam",
+         "dyn_f2v_eta", "dyn_f2v_lam", "dyn_v2f_eta", "dyn_v2f_lam",
+         "obs_f2v_eta", "obs_f2v_lam", "trk_f2v_eta", "trk_f2v_lam",
+         "trk_last_val"), 1e-3),
+    **dict.fromkeys(
+        ("belief_mean", "snap_mu", "dyn_v2f_mu", "obs_v2f_mu", "trk_v2f_mu",
+         "trk_last_pos"), 1e-2),
+    **dict.fromkeys(("trk_record", "trk_timeout"), 0.0),
+}
 
-        def index_map(r, _n=nlead):
-            return (0,) * _n + (r,)
 
-        return pl.BlockSpec(lead + (r_tile,), index_map)
+def slot_mismatches(ref, got) -> list[tuple[str, float, float]]:
+    """Fields of two SimStates that disagree beyond SLOT_TOLERANCE, as
+    (field, max abs difference, allowed)."""
+    import numpy as np
 
-    inputs = [hot[name] for name in _VAR_IN_FIELDS]
-    in_specs = [spec(a) for a in inputs]
-    out_shapes = [
-        jax.ShapeDtypeStruct(hot[n].shape, hot[n].dtype) for n in _VAR_OUT_FIELDS
-    ]
-    out_specs = [spec(hot[n]) for n in _VAR_OUT_FIELDS]
-    outs = pl.pallas_call(
-        partial(_variable_kernel, p),
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shapes,
+    bad = []
+    for field, rtol in SLOT_TOLERANCE.items():
+        a = np.asarray(getattr(ref, field)).astype(np.float64)
+        b = np.asarray(getattr(got, field)).astype(np.float64)
+        allowed = rtol * max(float(np.abs(a).max(initial=0.0)), 1.0)
+        err = float(np.abs(a - b).max(initial=0.0))
+        if not err <= allowed:
+            bad.append((field, err, allowed))
+    return bad
+
+
+# --------------------------------------------------------------------------
+# wrappers
+# --------------------------------------------------------------------------
+
+def _call(kernel, cfg, inputs: dict, *, interpret: bool) -> dict:
+    """pallas_call over all (robot, variable) pairs; `cfg["outputs"]` name
+    the inputs updated in place."""
+    names = tuple(inputs)
+    outputs = cfg["outputs"]
+    args = [inputs[k] for k in names]
+    out = pl.pallas_call(
+        functools.partial(kernel, cfg, names),
+        out_shape=[jax.ShapeDtypeStruct(inputs[k].shape, inputs[k].dtype)
+                   for k in outputs],
+        grid=(pl.cdiv(cfg["R"] * cfg["V"], BLOCK),),
+        input_output_aliases={names.index(k): j for j, k in enumerate(outputs)},
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(*inputs)
-    return dict(zip(_VAR_OUT_FIELDS, outs))
+        name=kernel.__name__.strip("_"),
+    )(*args)
+    return dict(zip(outputs, out))
 
 
-def internal_slot(hot: dict, p: SlotParams, *, r_tile: int = 128, interpret: bool = False) -> dict:
-    """Run the fused internal slot. `hot` maps _IN_FIELDS names to hot-layout
-    arrays (R last, a multiple of r_tile). Returns dict of _OUT_FIELDS."""
-    R = hot["gate"].shape[-1]
-    assert R % r_tile == 0, (R, r_tile)
-    grid = (R // r_tile,)
+def _rows(x):
+    """[R, V, ...] -> [R * V, prod(...)] (or [R * V] for scalar fields)."""
+    lead = x.shape[0] * x.shape[1]
+    return x.reshape((lead, -1) if x.ndim > 2 else (lead,))
 
-    def spec(arr):
-        lead = arr.shape[:-1]
-        block = lead + (r_tile,)
-        nlead = len(lead)
 
-        def index_map(r, _n=nlead):
-            return (0,) * _n + (r,)
+def _cfg(params, R: int, **extra) -> dict:
+    """Static kernel configuration; the wrapper adds `outputs`, the input
+    fields the kernel updates in place."""
+    V = params.n_vars
+    return dict(
+        R=R, V=V,
+        dynamic=params.dynamic_enabled,
+        obstacle=params.obstacle_enabled and V > 2,
+        tracking=params.tracking_enabled and V > 2,
+        **extra,
+    )
 
-        return pl.BlockSpec(block, index_map)
 
-    in_specs = []
-    inputs = []
-    for name in _IN_FIELDS:
-        arr = hot[name]
-        inputs.append(arr)
-        in_specs.append(spec(arr))
+def factor_pass(state, sdf, params, gate, tgate, *, interpret=False) -> dict:
+    """The internal factor pass's message fields (tick.internal_factor_pass)
+    for robots where `gate` ([R] bool) holds; tracking where `tgate` holds."""
+    R, V = state.prior_mean.shape[:2]
+    f = state.prior_mean.dtype
+    ts = jnp.asarray(params.variable_timesteps, dtype=f)
+    cfg = _cfg(
+        params, R,
+        sigma_dynamics=params.sigma_factor_dynamics,
+        sigma_obstacle=params.sigma_factor_obstacle,
+        sigma_tracking=params.sigma_factor_tracking,
+        sdf_shape=tuple(sdf.shape),
+        world=(params.world_width, params.world_height),
+        switch_padding=params.tracking_switch_padding,
+        attraction_distance=params.tracking_attraction_distance,
+        max_waypoints=state.trk_path.shape[1],
+    )
+    ins = {"gate": gate.astype(jnp.int32), "t0": state.t0,
+           "gaps": ts[1:] - ts[:-1]}
+    outputs = []
+    if cfg["dynamic"]:
+        ins.update(
+            dyn_v2f_eta=_rows(state.dyn_v2f_eta), dyn_v2f_lam=_rows(state.dyn_v2f_lam),
+            dyn_f2v_eta=_rows(state.dyn_f2v_eta), dyn_f2v_lam=_rows(state.dyn_f2v_lam),
+        )
+        outputs += ["dyn_f2v_eta", "dyn_f2v_lam"]
+    if cfg["obstacle"]:
+        ins.update(
+            sdf=sdf.reshape(-1), obs_v2f_mu=_rows(state.obs_v2f_mu),
+            obs_f2v_eta=_rows(state.obs_f2v_eta), obs_f2v_lam=_rows(state.obs_f2v_lam),
+        )
+        outputs += ["obs_f2v_eta", "obs_f2v_lam"]
+    if cfg["tracking"]:
+        trk = ("trk_f2v_eta", "trk_f2v_lam", "trk_record", "trk_timeout",
+               "trk_last_pos", "trk_last_val")
+        ins.update(
+            tgate=tgate.astype(jnp.int32), trk_v2f_mu=_rows(state.trk_v2f_mu),
+            trk_path=_rows(state.trk_path), trk_path_len=state.trk_path_len,
+            **{k: _rows(getattr(state, k)) for k in trk},
+        )
+        outputs += list(trk)
+    if not outputs:
+        return {}
+    cfg["outputs"] = tuple(outputs)
+    out = _call(_factor_kernel, cfg, ins, interpret=interpret)
+    return {k: x.reshape(getattr(state, k).shape) for k, x in out.items()}
 
-    out_shapes = []
-    out_specs = []
-    for name in _OUT_FIELDS:
-        arr = hot[name]
-        out_shapes.append(jax.ShapeDtypeStruct(arr.shape, arr.dtype))
-        out_specs.append(spec(arr))
 
-    kernel = partial(_slot_kernel, p)
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shapes,
-        interpret=interpret,
-    )(*inputs)
-    return dict(zip(_OUT_FIELDS, outs))
+def belief_pass(state, params, gate, *, responses: bool, interpret=False) -> dict:
+    """Belief update of every variable where `gate` ([R] bool) holds
+    (variables.sum_messages + update_beliefs); with `responses`, also the
+    snapshots and the internal-factor responses of
+    tick.internal_variable_pass."""
+    R, V = state.prior_mean.shape[:2]
+    outputs = ["belief_eta", "belief_lam", "belief_mean"]
+    cfg = _cfg(params, R, responses=responses)
+    ins = {
+        "gate": gate.astype(jnp.int32),
+        "prior_mean": _rows(state.prior_mean),
+        "prior_sigma": _rows(state.prior_sigma),
+        "dyn_f2v_eta": _rows(state.dyn_f2v_eta),
+        "dyn_f2v_lam": _rows(state.dyn_f2v_lam),
+        "ext_sum": _rows(rank1_sum_compact(state.ext_inbox, axis=1)),
+        **{k: _rows(getattr(state, k)) for k in outputs},
+    }
+    if V > 2:
+        ins.update({k: _rows(getattr(state, k)) for k in (
+            "obs_f2v_eta", "obs_f2v_lam", "trk_f2v_eta", "trk_f2v_lam")})
+    if responses:
+        outputs += ["snap_eta", "snap_lam", "snap_mu"]
+        if cfg["dynamic"]:
+            outputs += ["dyn_v2f_eta", "dyn_v2f_lam", "dyn_v2f_mu"]
+        if cfg["obstacle"]:
+            outputs.append("obs_v2f_mu")
+        if cfg["tracking"]:
+            outputs.append("trk_v2f_mu")
+        ins.update({k: _rows(getattr(state, k)) for k in outputs if k not in ins})
+    cfg["outputs"] = tuple(outputs)
+    out = _call(_belief_kernel, cfg, ins, interpret=interpret)
+    return {k: x.reshape(getattr(state, k).shape) for k, x in out.items()}

@@ -3,9 +3,9 @@
 The reference routes inter-robot GBP messages in-process by looking up the
 destination factor graph by entity id (crates/magics/src/planner/robot.rs:
 1803-1858) — its "network" is a Vec of (from, to, message) triples pushed
-between ECS components. SURVEY.md §2.4 maps that to the TPU as: robots
-sharded over a mesh axis, message exchange lowering to collectives over
-ICI/DCN, with antenna/radius gates as boolean masks.
+between ECS components. SURVEY.md §2.4 maps that to a device mesh: robots
+sharded over a mesh axis, message exchange lowering to collectives between
+devices, with antenna/radius gates as boolean masks.
 
 This module makes that backend explicit and swappable. Every cross-robot
 access in the tick (neighbour discovery, inter-robot message delivery,
@@ -18,8 +18,8 @@ column-reductions of pairwise event matrices) goes through a `Comm`:
   * `ShardComm`  — inside `jax.shard_map` over a robot-sharded mesh axis:
     each shard holds `R/p` robots; `all_robots` is `lax.all_gather`
     (tiled) over the axis, scalar event counts `lax.psum`, and per-robot
-    column-sums of pairwise matrices `lax.psum_scatter`. On TPU these are
-    the ICI/DCN collectives; neighbour indices stay *global* robot ids, so
+    column-sums of pairwise matrices `lax.psum_scatter`. XLA hands these to
+    NCCL on GPUs; neighbour indices stay *global* robot ids, so
     shard-local code is identical to the local path.
 
 Both are frozen dataclasses (hashable) so they can be closed over by jit as
@@ -29,8 +29,8 @@ Why all-gather and not a spatial halo exchange: robots are sharded by id,
 not by position (they move; any spatial partition churns), so a shard's
 neighbours can live anywhere — the exchange is inherently all-to-all. The
 gathered tensors are small (positions [R, 2]; compact rank-1 message tables
-[R, K, V-1, 4] — ~2.6 MB at R=1024, K=8, V=21 f32), far below ICI
-bandwidth at the tick rates involved. `reduce_scatter`/`psum` carry the
+[R, K, V-1, 4] — ~2.6 MB at R=1024, K=8, V=21 f32), small next to the
+link bandwidth between devices at the tick rates involved. `reduce_scatter`/`psum` carry the
 event-count reductions back. A spatially sorted robot order (so most
 neighbours are shard-local and the gather's useful fraction is high) is a
 layout optimisation on top, not a different backend.

@@ -1,25 +1,28 @@
-"""Multi-host launcher: `jax.distributed` entry point for the swarm tick.
+"""Multi-process launcher: `jax.distributed` entry point for the swarm tick.
 
-BASELINE.md's scaling row is solves/s at 1 chip / 1 host / >= 2 hosts. On a
-multi-host TPU slice each host runs this same program; `initialize()` wires
-jax.distributed from the environment, after which `jax.devices()` spans the
-whole slice and the existing mesh machinery (parallel/sharding.py,
-parallel/shard_tick.py) works unchanged — the robot-axis all_gather rides
-ICI within a host's chips and DCN between hosts, with XLA routing the
-hierarchy. No rendezvous code of our own: the launcher is environment-driven
-so it composes with any scheduler that can export three variables.
+Every process runs this same program; `initialize()` wires jax.distributed
+from the environment, after which `jax.devices()` spans every process's
+devices and the existing mesh machinery (parallel/sharding.py,
+parallel/shard_tick.py) works unchanged — the robot-axis all_gather runs
+over NVLink between the cards of a host and over the network between hosts,
+with XLA routing the hierarchy. No rendezvous code of our own: the launcher
+is environment-driven so it composes with any scheduler that can export
+three variables.
 
-Environment (all optional on TPU pods, where jax auto-detects):
+Environment (leave all unset for a single-process run, which drives every
+local device from one process):
     MAGICS_COORDINATOR   host:port of process 0 (jax.distributed coordinator)
     MAGICS_NUM_PROCESSES total process count
     MAGICS_PROCESS_ID    this process's rank
 
+When the processes share one host (coordinator on localhost), process i
+drives GPU i only, so no two processes open the same card.
+
 Usage:
-    # on every host (TPU pod: no env needed)
+    # one process per host
     python -m magics_tpu.parallel.launch --robots 16384 --ticks 50
 
-Multi-process CPU dry run (no TPU pod needed; used by
-tests/test_multiprocess_launch.py):
+Multi-process CPU dry run (used by tests/test_multiprocess_launch.py):
     MAGICS_COORDINATOR=localhost:9911 MAGICS_NUM_PROCESSES=2 \
     MAGICS_PROCESS_ID=0 XLA_FLAGS=--xla_force_host_platform_device_count=4 \
     python -m magics_tpu.parallel.launch --platform cpu --robots 64 ...
@@ -32,46 +35,35 @@ import os
 import sys
 import time
 
+from magics_tpu.cli import PLATFORMS
+from magics_tpu.compile_cache import enable_compile_cache
+
 
 def initialize(platform: str | None = None) -> None:
-    """Initialise jax.distributed from the environment (idempotent).
+    """Initialise jax.distributed from the environment.
 
-    On TPU pods with no MAGICS_* variables set, jax.distributed.initialize()
-    auto-detects the slice topology. Single-process runs (no coordinator
-    configured, not a pod) skip initialisation entirely.
+    Single-process runs (no coordinator configured) skip initialisation. A
+    failed rendezvous raises: a multi-process run must never quietly
+    continue at a smaller world size.
     """
     import jax
 
     if platform:
-        jax.config.update("jax_platforms", platform)
+        jax.config.update("jax_platforms", PLATFORMS[platform])
 
     coord = os.environ.get("MAGICS_COORDINATOR")
     nproc = os.environ.get("MAGICS_NUM_PROCESSES")
     pid = os.environ.get("MAGICS_PROCESS_ID")
-    if coord and nproc is not None and pid is not None:
-        jax.distributed.initialize(
-            coordinator_address=coord,
-            num_processes=int(nproc),
-            process_id=int(pid),
-        )
-    elif os.environ.get("TPU_WORKER_HOSTNAMES") and not os.environ.get(
-        "MAGICS_SINGLE_PROCESS"
-    ):
-        # TPU pod: topology from the TPU environment
-        try:
-            jax.distributed.initialize()
-        except Exception as e:
-            # A genuine rendezvous/misconfig failure must not silently
-            # degrade to a single-host run producing wrong-scale results:
-            # log what happened and the resulting world size so the
-            # fallback is visible in the launcher output.
-            print(
-                "[magics_tpu.launch] jax.distributed.initialize() failed "
-                f"({type(e).__name__}: {e}); continuing single-process "
-                f"(process_count=1). Set MAGICS_COORDINATOR/"
-                "MAGICS_NUM_PROCESSES/MAGICS_PROCESS_ID to force multi-host.",
-                file=sys.stderr,
-            )
+    if not (coord and nproc is not None and pid is not None):
+        return
+    shared_host = coord.split(":")[0] in ("localhost", "127.0.0.1")
+    local_ids = [int(pid)] if shared_host and platform != "cpu" else None
+    jax.distributed.initialize(
+        coordinator_address=coord,
+        num_processes=int(nproc),
+        process_id=int(pid),
+        local_device_ids=local_ids,
+    )
 
 
 def main(argv=None) -> int:
@@ -81,7 +73,7 @@ def main(argv=None) -> int:
     p.add_argument("--slots", type=int, default=24)
     p.add_argument("--internal", type=int, default=10)
     p.add_argument("--external", type=int, default=10)
-    p.add_argument("--platform", default=None)
+    p.add_argument("--platform", choices=sorted(PLATFORMS), default=None)
     p.add_argument(
         "--check-sum", action="store_true",
         help="print a deterministic checksum of the final positions "
@@ -90,6 +82,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     initialize(args.platform)
+    enable_compile_cache()
 
     import jax
     import jax.numpy as jnp

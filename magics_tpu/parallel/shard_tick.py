@@ -11,7 +11,7 @@ Two ways to scale the swarm over devices exist in this framework:
      slot tables / compact rank-1 message outboxes, `psum` for global
      event counts, `psum_scatter` for per-robot column reductions. This
      is the scaling-book recipe with the communication *visible*: what
-     moves over ICI/DCN per tick is exactly the small tensors listed in
+     moves between devices per tick is exactly the small tensors listed in
      comm.py, independent of what GSPMD would infer.
 
 Both paths compute bit-identical results to the single-device tick (the

@@ -4,7 +4,7 @@ The reference "distributes" robots over Bevy's CPU thread pool within one
 process (robot.rs:1789-1800). Here the robot axis of every `[R, ...]` array is
 sharded over a 1-D `jax.sharding.Mesh` axis ("r"); the inter-robot message
 gathers in the tick (`arr[nbr_idx, back]`) become XLA collectives
-(all-to-all / collective-permute over ICI) inserted by GSPMD under jit. The
+(all-to-all / collective-permute between devices) inserted by GSPMD under jit. The
 `[R, R]` neighbour-discovery and collision matrices shard by rows so each
 device scans all positions (replicated [R,2] gather) against its own robots.
 
@@ -14,7 +14,7 @@ state, jit the same `tick.step` — no communication code is duplicated.
 The sibling modules make the communication explicit instead:
 `parallel/comm.py` (the backend as a component) and `parallel/shard_tick.py`
 (the tick under shard_map with hand-placed all_gather/psum/reduce-scatter) —
-same maths, bit-identical results, with the per-tick ICI/DCN traffic visible
+same maths, bit-identical results, with the per-tick device-to-device traffic visible
 and independent of GSPMD's partitioning choices.
 """
 

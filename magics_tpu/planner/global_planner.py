@@ -3,7 +3,7 @@
 The reference spawns an async RRT* task per robot when a mission route needs
 global planning (crates/magics/src/planner/robot.rs:562-812: Idle ->
 spawn_pathfinding_task -> poll -> feed tracking factors + reset variables).
-In the headless TPU build, formation spawns are pre-planned, so paths are
+In this headless build, formation spawns are pre-planned, so paths are
 computed host-side at scenario build time — one `plan()` per route segment —
 and handed to the dense state as the robot's waypoint list / tracking path.
 

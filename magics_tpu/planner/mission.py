@@ -10,7 +10,7 @@ timeout (factorgraph.rs:1565-1585, factor/tracking.rs:362-381), and the
 mission turns Active. When a route segment completes, the next segment is
 planned the same way (robot.rs:800-808).
 
-TPU-native shape: planning runs host-side on a thread pool (the native C++
+Accelerator-side shape: planning runs host-side on a thread pool (the native C++
 RRT*, planner/global_planner.py) while the device advances in jitted chunks.
 Idle robots are device-resident but gated out of the GBP tick by
 `plan_pending` (mission_active stays False — the reference's Idle mission

@@ -1,7 +1,7 @@
-"""Live browser view of a RUNNING simulation — the TPU-first redesign of the
+"""Live browser view of a RUNNING simulation — a headless redesign of the
 reference's live Bevy/egui view (crates/magics/src/ui/mod.rs:36-83).
 
-The reference renders every frame from the ECS; a headless TPU run instead
+The reference renders every frame from the ECS; a headless run instead
 streams compact per-chunk frames (positions, counters) from the device to a
 tiny stdlib HTTP server, and a self-contained canvas page polls them:
 

@@ -1,12 +1,12 @@
 """Interactive playback viewer: export JSON -> one self-contained HTML file.
 
-This is the TPU build's equivalent of the reference's interactive UI stack —
+This is the headless build's equivalent of the reference's interactive UI stack —
 the egui panels (crates/magics/src/ui/, ~3300 LoC), the visualiser plugins
 (crates/magics/src/planner/visualiser/mod.rs:33-49), the Catppuccin theme
 (crates/magics/src/theme.rs), the pause/play + manual stepping controls
 (crates/magics/src/pause_play.rs:16-47, planner/robot.rs:2448-2519) and the
 keyboard bindings (crates/magics/src/input/). The simulation itself runs
-headless on TPU; interactivity happens offline over the exported run, which
+headless on the accelerator; interactivity happens offline over the exported run, which
 keeps the device loop free of host round-trips.
 
 Feature map (reference -> player):

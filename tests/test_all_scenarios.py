@@ -20,7 +20,7 @@ ALL = list_scenarios(REF_SCENARIOS)
 
 # scenarios whose build alone costs 20-35 s (global-planner pre-planning /
 # big SDF bakes) live in the slow tier; the fast tier keeps broad coverage
-# with the cheap ones (VERDICT round-4 item: a core tier under ~5 min)
+# with the cheap ones (a core tier under ~5 min)
 _HEAVY = {
     "Collaborative GP", "Collaborative Complex", "Solo GP", "Showcase",
     "Communications Failure Experiment", "Varying Network Connectivity "

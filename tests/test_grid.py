@@ -198,25 +198,6 @@ def test_partner_table_overflow_counter():
     assert int(state.rr_partner_overflow) == R * 3
 
 
-def test_obstacle_tap_methods_bit_identical():
-    """The MXU one-hot lookup must match the gather exactly (graph/factors.py
-    obstacle_taps): every one-hot product selects a single f32 table entry."""
-    import jax.numpy as jnp
-
-    from magics_tpu.graph import factors as F
-
-    rng = np.random.default_rng(3)
-    sdf = jnp.asarray(rng.random((64, 48)).astype(np.float32))
-    mu = jnp.asarray(
-        rng.uniform(-60, 60, size=(7, 33, 4)).astype(np.float32)
-    )  # includes out-of-bounds coords
-    world = (100.0, 90.0)
-    a = F.obstacle_taps(mu, sdf, world, method="gather")
-    b = F.obstacle_taps(mu, sdf, world, method="onehot")
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-
-
 def test_grid_overflow_counter_in_state():
     """Undersized `grid_capacity` must be visible in-state: the circle-center
     crush packs ~all robots into one cell, so capacity 2 drops robots from

@@ -2,7 +2,7 @@
 
 The reference runs its simulator under an egui UI with live pause/play
 (pause_play.rs:16-47), manual stepping (robot.rs:2448-2519) and a settings
-panel that edits the running config (ui/settings.rs). The TPU-first
+panel that edits the running config (ui/settings.rs). The headless
 redesign serves the same controls over HTTP: POST /cmd enqueues commands
 that LiveServer.drive() consumes between device chunks.
 """

@@ -4,7 +4,7 @@ Spawns two OS processes that initialise jax.distributed against a local
 coordinator, build one global 8-device mesh (4 virtual CPU devices each —
 the 2-host topology analogue), run the shard_map tick across it, and print
 a replicated checksum of the global positions. Both processes must agree —
-the DCN-path equivalent of the single-process dryrun.
+the multi-host equivalent of the single-process dryrun.
 """
 
 from __future__ import annotations

@@ -132,36 +132,3 @@ def test_receiver_with_grid_and_despawn():
             np.asarray(sa.active), np.asarray(sb.active), err_msg=f"tick {t}"
         )
     assert bool(np.asarray(sa.completed).all())
-
-
-@pytest.mark.slow
-def test_receiver_compact_hot_branch_matches_xla():
-    """The hot-index-space compact path (use_pallas driver,
-    factors.interrobot_rank1_messages_compact_hot) must match the plain XLA
-    compact path — same maths, different index order (run in Pallas
-    interpreter mode on CPU)."""
-    R = 10
-    specs = circle_formation(R, circle_radius=14.0, target_speed=8.0)
-    kw = dict(
-        target_speed=8.0, planning_horizon=2.0, hz=10.0, comms_radius=40.0,
-        internal=4, external=3, n_slots=R - 1, dtype=jnp.float32,
-        ext_exchange="receiver_compact",
-    )
-    pa, sa, sdf = build_scenario(specs, **kw)
-    pb, sb, _ = build_scenario(
-        specs, use_pallas=True, pallas_interpret=True, pallas_r_tile=16, **kw
-    )
-    step = jax.jit(T.step, static_argnums=2)
-    for t in range(20):
-        sa = step(sa, sdf, pa)
-        sb = step(sb, sdf, pb)
-        # f32 fusion/contraction ordering differs between the two index
-        # orders (~4e-5 relative observed) — same maths, not bit-equal
-        np.testing.assert_allclose(
-            np.asarray(sa.ext_inbox), np.asarray(sb.ext_inbox),
-            rtol=5e-4, atol=1e-3, err_msg=f"tick {t}",
-        )
-        np.testing.assert_allclose(
-            np.asarray(sa.pos), np.asarray(sb.pos), rtol=1e-4, atol=1e-3,
-            err_msg=f"tick {t}",
-        )

@@ -84,7 +84,7 @@ def test_pallas_tick_shard_equivalence():
         specs, target_speed=8.0, planning_horizon=1.0, comms_radius=60.0,
         internal=3, external=2, n_slots=4, dtype=jnp.float64,
         comms_failure_rate=0.1, seed=5,
-        use_pallas=True, pallas_interpret=True, pallas_r_tile=2,
+        use_pallas=True, pallas_interpret=True,
     )
     _assert_equivalent(params, state, sdf)
 
